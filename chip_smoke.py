@@ -1,0 +1,414 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+
+Run from the repository root with one CUDA card and nvcc present:
+
+    python3 chip_smoke.py
+
+It imports only the port (``sparseharness_tpu_torch``), never JAX. Each
+phase prints one JSON line with its seconds; any failure raises, so the
+script exits non-zero, and without a card it exits 1 before printing any
+result. Phases:
+
+1. device and build: the card, its power limit, torch and CUDA versions,
+   and the nvcc build of every kernel source;
+2. kernel vs plain: both paths of the bsr_band kernel (x staged in shared
+   memory, x streamed) against the plain torch version on the same CUDA
+   tensors, for all seven semirings and every strip type, at a small and at
+   the full bench width; bit-exact except plus_times, held within
+   1e-5 · max(1, |plain|, Σ|a·x|) because its sum order differs;
+3. the main path, with the launch counters reset just before and read just
+   after: the 524,288-row band SpMV (bench.py's headline, 66,580,544 nnz)
+   through make_spmv_problem and benchmark_spmv, gold-gated in f32 and bf16
+   on both kernel paths; then the sssp, bfs and pagerank fixpoints at that
+   width, each with a certificate that is cheap at full width;
+4. the same apps on a small band against the port's NumPy golds;
+5. kernel timing at the main path's f32 shape (CUDA events): each kernel
+   path, the plain version, torch.mv on a CSR tensor of the same matrix as
+   the library yardstick, and the bytes/operations bound.
+
+Then the kernels line, the nvidia-smi line and, last, the ok line.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import re
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+FULL_N = 1 << 19   # bench.py's banded headline: 524,288 rows
+BAND = 63          # 127 nnz per interior row
+SMALL_N = 3000
+SMALL_BAND = 40
+PT_DELTA = 1e-5    # plus_times tolerance, scaled by max(1, |ref|, Σ|a·x|)
+F32_PEAK_OPS = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
+SEMIRINGS = ("plus_times", "min_plus", "or_and", "max_min", "max_times",
+             "max_right", "min_right")
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+class Phase:
+    """Prints the phase's JSON line, with its seconds, when it ends."""
+
+    def __init__(self, name: str):
+        self.fields = {"phase": name}
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self.fields
+
+    def __exit__(self, exc_type, *_):
+        if exc_type is None:
+            self.fields["seconds"] = time.perf_counter() - self._t0
+            emit(self.fields)
+        return False
+
+
+def time_ms(torch, fn, n: int) -> float:
+    """Mean milliseconds per call over n back-to-back calls (CUDA events),
+    after two warm-up calls."""
+    fn()
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def random_x(torch, sr, n: int, rng) -> "torch.Tensor":
+    if sr.dtype == torch.bool:
+        x = rng.random(n) < 0.3
+    elif sr.dtype == torch.int32:
+        x = rng.integers(0, n, n).astype(np.int32)
+    else:
+        x = rng.uniform(0.1, 1.0, n).astype(np.float32)
+    return torch.from_numpy(x).cuda()
+
+
+def max_err(torch, a, b) -> float:
+    """Largest |a − b| where a != b (matching infinities count as equal)."""
+    a, b = a.double(), b.double()
+    diff = torch.where(a == b, torch.zeros_like(a), (a - b).abs())
+    return float(diff.max())
+
+
+def kernel_vs_plain(torch, coo, errs) -> dict:
+    """Both kernel paths against the plain version on one matrix; the worst
+    plus_times error per path goes into ``errs``."""
+    from sparseharness_tpu_torch.ops import bsr_band
+    from sparseharness_tpu_torch.semiring import PLUS_TIMES, get_semiring
+
+    rng = np.random.default_rng(7)
+    n = coo.shape[0]
+    checked = 0
+    for name in SEMIRINGS:
+        sr = get_semiring(name)
+        for vd in (("float32", "bfloat16") if sr.dtype == torch.float32 else ("float32",)):
+            op = bsr_band.build_bsr_band(coo, sr, value_dtype=vd, device="cuda")
+            x = random_x(torch, sr, n, rng)
+            x2d = bsr_band.pad_x(op, x, sr)
+            bound = None
+            if name == "plus_times":
+                bound = bsr_band.band_dp_plain(
+                    op.strips.abs(), x2d.abs(), PLUS_TIMES, c0=op.c0,
+                    k_win=op.k_win, kc=op.k_win)
+            # staged, streamed, and streamed with one slot per ⊕-partial
+            for path, stage_x, kc in (("staged", True, op.k_win),
+                                      ("streamed", False, bsr_band.chunk_slots(op, False)),
+                                      ("streamed", False, 1)):
+                got = bsr_band.band_dp_cuda(op.strips, x2d, sr, c0=op.c0,
+                                            k_win=op.k_win, stage_x=stage_x, kc=kc)
+                torch.cuda.synchronize()
+                ref = bsr_band.band_dp_plain(op.strips, x2d, sr, c0=op.c0,
+                                             k_win=op.k_win, kc=kc)
+                if bound is None:
+                    if not torch.equal(got, ref):
+                        raise AssertionError(
+                            f"{path} kernel != plain for {name}/{vd}/kc={kc}: "
+                            f"{int((got != ref).sum())} rows differ")
+                    err = 0.0
+                else:
+                    tol = PT_DELTA * torch.maximum(
+                        torch.maximum(ref.abs(), bound), torch.ones_like(ref))
+                    bad = int(((got - ref).abs() > tol).sum())
+                    if bad:
+                        raise AssertionError(
+                            f"{path} kernel outside tolerance for {name}/{vd}/"
+                            f"kc={kc}: {bad} rows")
+                    err = max_err(torch, got, ref)
+                errs[path] = max(errs[path], err)
+                checked += 1
+            del op, x2d
+    return {"rows": n, "nnz": coo.nnz, "comparisons": checked}
+
+
+def spmv_main_path(torch, coo, out) -> None:
+    from sparseharness_tpu_torch.algorithms import make_spmv_problem
+    from sparseharness_tpu_torch.gold import Correctness, spmv_abs_bound, spmv_gold
+    from sparseharness_tpu_torch.harness import (
+        BenchmarkConfig, benchmark_spmv, device_hbm_bandwidth, variant_bytes,
+    )
+    from sparseharness_tpu_torch.ops import Geometry
+    from sparseharness_tpu_torch.semiring import PLUS_TIMES
+
+    card = torch.cuda.get_device_name(0)
+    bw = device_hbm_bandwidth(card)
+    config = BenchmarkConfig(trials=5, launches_per_trial=20)
+    for vd in ("float32", "bfloat16"):
+        geom = Geometry(8, 128, vd)
+        prob = make_spmv_problem(coo, PLUS_TIMES, "bsr_band", geom, seed=2)
+        gold_coo = coo
+        if vd == "bfloat16":
+            # the gate's gold uses the values as the bf16 strips hold them
+            vals = torch.from_numpy(coo.vals).to(torch.bfloat16).float().numpy()
+            gold_coo = coo.with_values(vals)
+        x_np = prob.x0.cpu().numpy()
+        gold = spmv_gold(gold_coo, x_np, prob.y.cpu().numpy(), PLUS_TIMES)
+        scale = spmv_abs_bound(gold_coo, x_np)
+        for path, windowed in (("staged", None), ("streamed", True)):
+            p = dataclasses.replace(
+                prob, operand=dataclasses.replace(prob.operand, windowed=windowed))
+            res = benchmark_spmv(p, gold=gold, config=config, geometry=geom,
+                                 matrix_name=f"banded{FULL_N}", nnz=coo.nnz,
+                                 gold_scale=scale)
+            if res.correctness is not Correctness.CORRECT:
+                raise AssertionError(f"bsr_band@{geom} {path}: {res.correctness}")
+            n_bytes = variant_bytes("bsr_band", p.operand, p.x0.numel() * 4,
+                                    coo.shape[0] * 4)
+            out.append({
+                "variant": "bsr_band", "geometry": str(geom), "path": path,
+                "correctness": res.correctness.value,
+                "median_ms": res.median_ns * 1e-6, "best_ms": res.best_ns * 1e-6,
+                "gnnz_per_s": res.gnnz_per_s,
+                "bytes_per_s": n_bytes / (res.median_ns * 1e-9),
+                "bound_ms": n_bytes / bw * 1e3,
+                "roofline_frac": res.roofline_frac,
+            })
+        del prob
+
+
+def fixpoints_main_path(torch, coo, out) -> None:
+    from sparseharness_tpu_torch.algorithms import bfs, pagerank, sssp
+    from sparseharness_tpu_torch.formats import pagerank_normalise
+    from sparseharness_tpu_torch.ops import build_operand, dp_bsr_band_plain, fold_dp
+    from sparseharness_tpu_torch.semiring import MIN_PLUS, PLUS_TIMES
+
+    n = coo.shape[0]
+
+    def plain_spmv(op, x, sr):
+        return fold_dp(dp_bsr_band_plain(op, x, sr, n_rows=n)[:n], None, sr,
+                       None, None)
+
+    t0 = time.perf_counter()
+    r = sssp(coo, 0, variant="bsr_band")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    op = build_operand(coo, MIN_PLUS, "bsr_band")
+    again = torch.minimum(r.x, plain_spmv(op, r.x, MIN_PLUS))
+    cert = bool(r.converged and float(r.x[0]) == 0.0 and torch.equal(again, r.x))
+    del op, again
+    out.append({"app": "sssp", "iterations": r.iterations, "converged": r.converged,
+                "seconds": dt, "certificate": "x[0] == 0 and min(x, A⊗x) == x",
+                "certified": cert})
+    if not cert:
+        raise AssertionError("sssp certificate failed")
+
+    t0 = time.perf_counter()
+    r = bfs(coo, 0, variant="bsr_band")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    want = torch.from_numpy(
+        ((np.arange(n) + BAND - 1) // BAND).astype(np.int32)).cuda()
+    cert = bool(r.converged and bool(r.x.all()) and torch.equal(r.aux, want))
+    out.append({"app": "bfs", "iterations": r.iterations, "converged": r.converged,
+                "seconds": dt, "certificate": f"levels == ceil(i / {BAND})",
+                "certified": cert})
+    if not cert:
+        raise AssertionError("bfs certificate failed")
+
+    delta, damping = 1e-6, 0.85
+    t0 = time.perf_counter()
+    r = pagerank(coo, damping, variant="bsr_band", delta=delta)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    op = build_operand(pagerank_normalise(coo, damping), PLUS_TIMES, "bsr_band")
+    teleport = np.float32((1.0 - damping) / n)
+    resid = float((plain_spmv(op, r.x, PLUS_TIMES) + teleport - r.x).abs().max())
+    total = float(r.x.double().sum())
+    cert = bool(r.converged and resid < delta and abs(total - 1.0) < 1e-3)
+    del op
+    out.append({"app": "pagerank", "iterations": r.iterations,
+                "converged": r.converged, "seconds": dt,
+                "certificate": "|A·x + t − x| < delta and Σx ≈ 1",
+                "residual": resid, "sum": total, "certified": cert})
+    if not cert:
+        raise AssertionError("pagerank certificate failed")
+
+
+def small_apps(torch) -> dict:
+    from sparseharness_tpu_torch.algorithms import bfs, pagerank, sssp
+    from sparseharness_tpu_torch.formats import banded_coo
+    from sparseharness_tpu_torch.gold import (
+        Correctness, bfs_levels_gold, check_result, pagerank_gold, sssp_gold,
+    )
+
+    coo = banded_coo(SMALL_N, SMALL_BAND, seed=3)
+    r = sssp(coo, 0, variant="bsr_band")
+    if check_result(r.x.cpu().numpy(), sssp_gold(coo, 0), delta=1e-5) is not Correctness.CORRECT:
+        raise AssertionError("small sssp disagrees with sssp_gold")
+    r = bfs(coo, 0, variant="bsr_band")
+    if not np.array_equal(r.aux.cpu().numpy(), bfs_levels_gold(coo, 0)):
+        raise AssertionError("small bfs levels disagree with bfs_levels_gold")
+    r = pagerank(coo, variant="bsr_band")
+    err = float(np.abs(r.x.cpu().numpy() - pagerank_gold(coo)).max())
+    if not (r.converged and err < 1e-6):
+        raise AssertionError(f"small pagerank off pagerank_gold by {err}")
+    return {"rows": SMALL_N, "pagerank_max_abs_err": err}
+
+
+def kernel_times(torch, coo) -> dict:
+    """Per-kernel ms at the main path's shape, the plain version's ms, the
+    library yardstick's ms and the bound, for f32 (and the kernels' bf16)."""
+    from sparseharness_tpu_torch.harness import device_hbm_bandwidth
+    from sparseharness_tpu_torch.ops import bsr_band
+    from sparseharness_tpu_torch.semiring import PLUS_TIMES
+
+    card = torch.cuda.get_device_name(0)
+    bw = device_hbm_bandwidth(card)
+    n = coo.shape[0]
+    x = random_x(torch, PLUS_TIMES, n, np.random.default_rng(11))
+    res = {}
+    for vd in ("float32", "bfloat16"):
+        op = bsr_band.build_bsr_band(coo, PLUS_TIMES, value_dtype=vd, device="cuda")
+        x2d = bsr_band.pad_x(op, x, PLUS_TIMES)
+        n_bytes = (op.strips.numel() * op.strips.element_size()
+                   + x2d.numel() * 4 + op.strips.shape[0] * op.strips.shape[1] * 4)
+        n_ops = 2 * op.strips.numel()  # one ⊗ and one ⊕ per strip slot
+        bytes_ms, ops_ms = n_bytes / bw * 1e3, n_ops / F32_PEAK_OPS * 1e3
+        entry = {"bound_ms": max(bytes_ms, ops_ms),
+                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                 "bytes": n_bytes}
+        for path, stage_x in (("staged", True), ("streamed", False)):
+            kc = bsr_band.chunk_slots(op, stage_x)
+            entry[f"{path}_ms"] = time_ms(torch, lambda: bsr_band.band_dp_cuda(
+                op.strips, x2d, PLUS_TIMES, c0=op.c0, k_win=op.k_win,
+                stage_x=stage_x, kc=kc), 50)
+        entry["plain_ms"] = time_ms(torch, lambda: bsr_band.band_dp_plain(
+            op.strips, x2d, PLUS_TIMES, c0=op.c0, k_win=op.k_win, kc=op.k_win), 5)
+        res[vd] = entry
+        del op, x2d
+    # library yardstick: cuSPARSE SpMV through torch.mv on a CSR tensor of
+    # the same matrix (plus_times, f32); the port never calls it
+    counts = np.bincount(coo.rows, minlength=n)
+    crow = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)]).astype(np.int32))
+    order = np.lexsort((coo.cols, coo.rows))
+    csr = torch.sparse_csr_tensor(
+        crow, torch.from_numpy(coo.cols[order]), torch.from_numpy(coo.vals[order]),
+        size=coo.shape).cuda()
+    res["float32"]["library_ms"] = time_ms(torch, lambda: torch.mv(csr, x), 20)
+    return res
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    from sparseharness_tpu_torch.formats import banded_coo
+    from sparseharness_tpu_torch.ops import LAUNCHES, _build
+
+    card = torch.cuda.get_device_name(0)
+    smi = nvidia_smi()
+    emit({"phase": "device", "card": card, "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "python": sys.version.split()[0]})
+
+    with Phase("build") as f:
+        t0 = time.perf_counter()
+        reports = _build.build()
+        f["build_seconds"] = time.perf_counter() - t0
+        f["sources"] = sorted(_build.sources())
+        log = "\n".join(reports.values())
+        f["ptxas_max_registers"] = max(
+            (int(m) for m in re.findall(r"Used (\d+) registers", log)), default=None)
+        f["ptxas_spills"] = [ln.strip() for ln in log.splitlines()
+                             if re.search(r"[1-9]\d* bytes spill", ln)]
+
+    with Phase("data") as f:
+        coo = banded_coo(FULL_N, BAND, seed=1)
+        small = banded_coo(SMALL_N, SMALL_BAND, seed=3)
+        f.update(rows=coo.shape[0], nnz=coo.nnz)
+
+    errs = {"staged": 0.0, "streamed": 0.0}
+    with Phase("kernel_vs_plain_small") as f:
+        f.update(kernel_vs_plain(torch, small, errs))
+    with Phase("kernel_vs_plain_full") as f:
+        f.update(kernel_vs_plain(torch, coo, errs))
+        f["max_abs_err"] = errs
+
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    spmv_lines, app_lines = [], []
+    with Phase("main_path_spmv") as f:
+        spmv_main_path(torch, coo, spmv_lines)
+        f.update(card=card, nvidia_smi=smi, runs=spmv_lines)
+    with Phase("main_path_fixpoints") as f:
+        fixpoints_main_path(torch, coo, app_lines)
+        f.update(card=card, nvidia_smi=smi, runs=app_lines)
+    launches = dict(LAUNCHES)
+    emit({"phase": "main_path_launches", "launches": launches})
+    for path, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"the {path} kernel never launched on the main path")
+
+    with Phase("small_apps_vs_gold") as f:
+        f.update(small_apps(torch))
+
+    with Phase("kernel_times") as f:
+        times = kernel_times(torch, coo)
+        f.update(card=card, nvidia_smi=smi, times=times)
+
+    f32 = times["float32"]
+    replaces = {"staged": "sparseharness_tpu/ops/pallas_bsr_band.py:180",
+                "streamed": "sparseharness_tpu/ops/pallas_bsr_band.py:259"}
+    emit({"kernels": [{
+        "name": f"bsr_band_{path}",
+        "route": "cuda",
+        "source": "sparseharness_tpu_torch/ops/csrc/bsr_band.cu",
+        "replaces": replaces[path],
+        "launches": launches[path],
+        "max_abs_err": errs[path],
+        "ms": f32[f"{path}_ms"],
+        "plain_ms": f32["plain_ms"],
+        "bound_ms": f32["bound_ms"],
+        "bound_by": f32["bound_by"],
+        "library_ms": f32["library_ms"],
+    } for path in ("staged", "streamed")]})
+    print(nvidia_smi())
+    emit({"ok": True, "device": {"platform": "gpu", "kind": card,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,46 @@
+"""sparseharness_tpu_torch — the PyTorch/CUDA port of sparseharness_tpu.
+
+The same semiring sparse linear algebra as the JAX package beside it, with
+its module layout and names, for one NVIDIA GPU:
+
+- sparse formats, seeded generators and the MatrixMarket reader (``formats``)
+- semirings as torch ops (``semiring``)
+- SpMV variants: plain-torch ELL and the hand-written CUDA ``bsr_band``
+  kernel (``ops``, sources in ``ops/csrc``, built with nvcc at first use)
+- NumPy golds and correctness checks (``gold``)
+- the benchmark harness, timed with CUDA events (``harness``)
+- the fixpoint loop and the sssp / bfs / pagerank apps (``algorithms``)
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+without a card they raise rather than fall back. It imports neither JAX
+nor the JAX package.
+"""
+
+__version__ = "0.1.0"
+
+from sparseharness_tpu_torch.semiring import (  # noqa: F401
+    MAX_MIN,
+    MAX_RIGHT,
+    MAX_TIMES,
+    MIN_PLUS,
+    MIN_RIGHT,
+    OR_AND,
+    PLUS_TIMES,
+    Semiring,
+    get_semiring,
+)
+from sparseharness_tpu_torch.ops import (  # noqa: F401
+    Geometry,
+    build_operand,
+    build_operand_auto,
+    spmv,
+)
+from sparseharness_tpu_torch.formats import (  # noqa: F401
+    COO,
+    banded_coo,
+    coo_from_arrays,
+    random_coo,
+    random_graph_coo,
+    read_mtx,
+)
+from sparseharness_tpu_torch.algorithms import bfs, pagerank, sssp  # noqa: F401

@@ -1,0 +1,14 @@
+from sparseharness_tpu_torch.algorithms.fixpoint import (  # noqa: F401
+    FixpointResult,
+    delta_converged,
+    exact_converged,
+    run_fixpoint,
+)
+from sparseharness_tpu_torch.algorithms.apps import (  # noqa: F401
+    Problem,
+    bfs,
+    make_spmv_problem,
+    pagerank,
+    spmv_once,
+    sssp,
+)

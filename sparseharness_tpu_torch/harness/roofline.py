@@ -1,0 +1,57 @@
+"""Speed-of-light (device-memory roofline) model per kernel variant.
+
+Semiring SpMV does one ⊗ and one ⊕ per stored slot against ≥ 2 bytes of
+operand traffic, far below any GPU's operations-per-byte balance, so its
+bound is bytes moved over the card's memory bandwidth.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+#: peak device-memory bandwidth, bytes/s, by a substring of
+#: torch.cuda.get_device_name() (NVIDIA's data sheets)
+_HBM_BW = {
+    "H100 80GB HBM3": 3.35e12,  # H100 SXM
+    "H100 PCIe": 2.0e12,
+}
+
+
+def device_hbm_bandwidth(device_name: str) -> float:
+    """Bytes/s for a card by name; an unknown card raises."""
+    for key, bw in _HBM_BW.items():
+        if key in device_name:
+            return bw
+    raise KeyError(f"no published memory bandwidth for {device_name!r}; "
+                   f"known: {sorted(_HBM_BW)}")
+
+
+def _operand_tensors(operand):
+    if dataclasses.is_dataclass(operand):
+        fields = [getattr(operand, f.name) for f in dataclasses.fields(operand)]
+    else:
+        fields = list(operand)
+    return [t for t in fields if isinstance(t, torch.Tensor)]
+
+
+def variant_bytes(variant: str, operand, x_bytes: int, out_bytes: int) -> int:
+    """Least device-memory traffic for one SpMV with this operand.
+
+    Blocked kernels (bsr_band): every operand array once + x once + the
+    output once. ``ell`` gathers one x element per operand slot, with no
+    reuse to count on, so it is charged that gather instead of one x pass."""
+    tensors = _operand_tensors(operand)
+    operand_bytes = sum(t.numel() * t.element_size() for t in tensors)
+    if variant == "ell":
+        slots = max(t.numel() for t in tensors)
+        itemsize = max(t.element_size() for t in tensors)
+        return operand_bytes + slots * itemsize + out_bytes
+    return operand_bytes + x_bytes + out_bytes
+
+
+def roofline_seconds(variant: str, operand, x_bytes: int, out_bytes: int,
+                     device_name: str) -> float:
+    return variant_bytes(variant, operand, x_bytes, out_bytes) / (
+        device_hbm_bandwidth(device_name))

@@ -1,0 +1,98 @@
+"""Build the port's CUDA sources into shared libraries at first use.
+
+Each ``ops/csrc/<name>.cu`` becomes ``lib<name>.so`` with a plain C
+interface, loaded with ctypes. The libraries go to ``build/sh_kernels/
+<digest>/`` beside the package, keyed by a hash of every source and the
+nvcc flags, so an edit rebuilds and an unchanged tree reuses the build.
+Only the sources in the checkout are compiled; a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "sh_kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                       "the port's kernels")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.iterdir()):
+        if p.suffix in (".cu", ".cuh", ".h"):
+            h.update(p.name.encode())
+            h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def sources() -> Dict[str, Path]:
+    return {p.stem: p for p in sorted(CSRC.glob("*.cu"))}
+
+
+def library_path(name: str) -> Path:
+    return BUILD_ROOT / _digest() / f"lib{name}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
+    """Compile the named sources (all by default) that are not built yet,
+    one nvcc each, all started together. Returns nvcc's report (ptxas
+    registers, shared memory and spills) per source built."""
+    srcs = sources()
+    names = list(srcs) if names is None else list(names)
+    nvcc = _nvcc()
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(srcs[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    reports = {}
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        reports[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+            continue
+        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        _LOADED[name] = lib
+    return lib
+

@@ -1,0 +1,297 @@
+"""The ``bsr_band`` variant: banded SpMV over affine x windows, no gather.
+
+For matrices whose nonzeros sit in a fixed-width window around an
+affine-in-row position (banded systems, stencils, the bench's band), the x
+blocks that a group of gs = bn/bm block-rows needs are a predictable
+slice: group g reads x blocks [base(g), base(g) + K) with
+base(g) = clamp(g + c0, 0, c_blocks − K). The strips are the only large
+stream; x is read once per group.
+
+The build detects the window offset c0 and width K from the data and
+raises NotImplementedError when the matrix does not fit (K would exceed
+MAX_WINDOW_BLOCKS), so ``auto`` falls back to the next variant.
+
+On a CUDA tensor :func:`dp_bsr_band` launches the hand-written kernel of
+``csrc/bsr_band.cu``, in one of two paths:
+
+- **staged** (the counterpart of the JAX package's x-resident
+  ``dp_bsr_band``): each block copies its group's K·bn-element x window
+  into shared memory, then streams its strips;
+- **streamed** (the counterpart of ``_dp_windowed``): x is read from
+  global memory (L1/L2) in chunks of kc window slots whose partials are
+  ⊕-combined in registers.
+
+On a CPU tensor it runs :func:`dp_bsr_band_plain`, the plain torch
+version of the same padded dp, which the tests and ``chip_smoke.py`` hold
+the kernel against.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from sparseharness_tpu_torch.formats.sparse import COO, fold_duplicates, round_up
+from sparseharness_tpu_torch.ops import _build
+from sparseharness_tpu_torch.semiring import Semiring
+from sparseharness_tpu_torch.semiring.core import _carrier, _np_fold_for
+from sparseharness_tpu_torch.utils.device import DeviceLike, resolve_device
+
+MAX_WINDOW_BLOCKS = 8
+#: a group's full-window strip block above which the streamed path splits
+#: the window into kc-slot chunks — the JAX package's rule, kept so that both
+#: packages chunk the same windows (here it only orders plus_times' sum)
+_MAX_GROUP_BYTES = 3 * 1024 * 1024
+#: the static shared memory a block may use without opting in; windowed=None
+#: picks the staged path whenever the x window fits, which with K ≤ 8 and
+#: bn = 128 (≤ 4 KB) it always does on this card
+_SMEM_WINDOW_BYTES = 48 * 1024
+
+#: launches of each kernel path since the last reset (a run resets them to
+#: show which paths its work went through)
+LAUNCHES = {"staged": 0, "streamed": 0}
+
+_SR_CODES = {"plus_times": 0, "min_plus": 1, "or_and": 2, "max_min": 3,
+             "max_times": 4, "max_right": 5, "min_right": 6}
+_STRIP_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+
+
+@dataclasses.dataclass(frozen=True)
+class BsrBandOperand:
+    """strips (R_blocks, bm, K·bn): slot k ↔ x block base(g) + k.
+
+    ``windowed`` picks the kernel path for every dp over this operand:
+    None by the rule of :func:`dp_bsr_band`, True streamed, False staged."""
+
+    strips: torch.Tensor
+    c0: int
+    k_win: int
+    n_cols: int
+    windowed: Optional[bool] = None
+
+
+def build_bsr_band(coo: COO, sr: Semiring, bm: int = 8, bn: int = 128,
+                   value_dtype: str = "float32", *,
+                   device: DeviceLike = None) -> BsrBandOperand:
+    """Detect the band window and scatter the entries into dense strips.
+
+    The per-entry work (window bounds, slots, scatter) runs in torch on the
+    target device; duplicates are ⊕-folded on the host first."""
+    device = resolve_device(device)
+    if bn % bm != 0:
+        raise NotImplementedError("bsr_band requires bn % bm == 0")
+    gs = bn // bm  # block-rows per x-block-aligned group
+    n, c = coo.shape
+    _, _, _, _, zero, as_int = _carrier(sr)
+    coo = fold_duplicates(coo, _np_fold_for(sr, as_int))
+    c_blocks = round_up(max(c, 1), bn) // bn
+    n_block_rows = round_up(max(n, 1), bm) // bm
+    n_groups = round_up(n_block_rows, gs) // gs
+
+    rows = torch.from_numpy(coo.rows).to(device=device, dtype=torch.int64)
+    cols = torch.from_numpy(coo.cols).to(device=device, dtype=torch.int64)
+    g_of = (rows // bm) // gs
+    bc = cols // bn
+    # per-group column-block span
+    min_bc = torch.full((n_groups,), np.iinfo(np.int32).max, dtype=torch.int64,
+                        device=device).scatter_reduce_(0, g_of, bc, "amin")
+    max_bc = torch.full((n_groups,), -1, dtype=torch.int64,
+                        device=device).scatter_reduce_(0, g_of, bc, "amax")
+    occupied = max_bc >= 0
+    if not bool(occupied.any()):
+        raise NotImplementedError("empty matrix; use another variant")
+    groups = torch.arange(n_groups, device=device)
+    # window offset: make base(g) = clamp(g + c0) cover [min_bc, max_bc]
+    c0 = int((min_bc - groups)[occupied].min())
+    base = (groups + c0).clamp(min=0)
+    k_win = int((max_bc - base + 1)[occupied].max())
+    if k_win > MAX_WINDOW_BLOCKS:
+        raise NotImplementedError(
+            f"window of {k_win} x-blocks exceeds {MAX_WINDOW_BLOCKS}: "
+            "matrix is not banded enough for bsr_band"
+        )
+    base = base.clamp(max=max(c_blocks - k_win, 0))
+
+    def out_of_window(base_g):
+        return bool(((bc < base_g) | (bc >= base_g + k_win)).any())
+
+    if out_of_window(base[g_of]):
+        # clamping at the right edge pushed some entries out of window
+        k_win += int((bc - (base[g_of] + k_win - 1)).max().clamp(min=0))
+        if k_win > MAX_WINDOW_BLOCKS:
+            raise NotImplementedError("edge clamping exceeds window limit")
+        base = (groups + c0).clamp(0, max(c_blocks - k_win, 0))
+        if out_of_window(base[g_of]):
+            raise NotImplementedError("window structure not affine enough")
+
+    r_rows = n_groups * gs  # padded block rows (gs multiple)
+    kbn = k_win * bn
+    carrier_np = np.dtype(np.int32) if as_int else sr.np_dtype
+    vals = (coo.vals != 0) if as_int else coo.vals
+    vals = torch.from_numpy(np.ascontiguousarray(vals.astype(carrier_np))).to(device)
+    strips = torch.full((r_rows * bm * kbn,), zero, dtype=vals.dtype, device=device)
+    # row r = (r // bm)·bm + r % bm, so the strip entry (r // bm, r % bm, lane)
+    # sits at r·kbn + lane
+    lane = (bc - base[g_of]) * bn + cols % bn
+    strips[rows * kbn + lane] = vals
+    strips = strips.view(r_rows, bm, kbn)
+    if (value_dtype == "bfloat16" and not as_int
+            and np.issubdtype(sr.np_dtype, np.floating)):
+        strips = strips.to(torch.bfloat16)  # round to nearest even
+    return BsrBandOperand(strips=strips, c0=c0, k_win=k_win, n_cols=c)
+
+
+def pad_x(op: BsrBandOperand, x: torch.Tensor, sr: Semiring) -> torch.Tensor:
+    """x padded with 0̄ to max(round_up(n, bn), K·bn), as (c_blocks, bn) in
+    the carrier type (bool → int32)."""
+    _, _, kbn = op.strips.shape
+    k = op.k_win
+    bn = kbn // k
+    # the window indexes x in whole blocks up to base + K: keep ≥ K blocks
+    c_pad = max(round_up(max(x.shape[0], 1), bn), k * bn)
+    x_pad = torch.full((c_pad,), sr.zero, dtype=sr.dtype, device=x.device)
+    x_pad[: x.shape[0]] = x.to(sr.dtype)
+    dtype, *_ = _carrier(sr)
+    return x_pad.view(c_pad // bn, bn).to(dtype)
+
+
+def chunk_slots(op: BsrBandOperand, staged: bool) -> int:
+    """kc: window slots per ⊕-partial, a divisor of K (a single slot always
+    fits, so one exists). The staged path takes the whole window at once."""
+    k = op.k_win
+    if staged:
+        return k
+    strips = op.strips
+    _, bm, kbn = strips.shape
+    bn = kbn // k
+    gs = bn // bm
+    item = strips.element_size()
+    kc = k
+    while gs * bm * kc * bn * item > _MAX_GROUP_BYTES or kc > 32:
+        kc -= 1
+        while k % kc:
+            kc -= 1
+    return kc
+
+
+def _staged(op: BsrBandOperand, x2d: torch.Tensor, windowed) -> bool:
+    if windowed is None:
+        windowed = op.windowed
+    if windowed is None:
+        return op.strips.shape[2] * x2d.element_size() <= _SMEM_WINDOW_BYTES
+    return not windowed
+
+
+def dp_bsr_band(op: BsrBandOperand, x: torch.Tensor, sr: Semiring, *,
+                n_rows: int, windowed: Optional[bool] = None) -> torch.Tensor:
+    """⊕-reduced row dot-products over the padded row space (r_rows·bm,).
+
+    On a CUDA tensor this launches the kernel; on a CPU tensor it runs the
+    plain version. ``windowed`` (default: the operand's) forces the
+    streamed (True) or staged (False) path; None stages x whenever its
+    window fits in shared memory."""
+    if op.strips.device.type == "cpu":
+        return dp_bsr_band_plain(op, x, sr, n_rows=n_rows, windowed=windowed)
+    x2d = pad_x(op, x, sr)
+    staged = _staged(op, x2d, windowed)
+    dp = band_dp_cuda(op.strips, x2d, sr, c0=op.c0, k_win=op.k_win,
+                      stage_x=staged, kc=chunk_slots(op, staged))
+    return dp > 0 if sr.dtype == torch.bool else dp
+
+
+def dp_bsr_band_plain(op: BsrBandOperand, x: torch.Tensor, sr: Semiring, *,
+                      n_rows: int, windowed: Optional[bool] = None) -> torch.Tensor:
+    """The plain torch version of :func:`dp_bsr_band`, on any device: same
+    padding, carrier and ``dp > 0`` rules. ``windowed`` is accepted for
+    parity and changes nothing but plus_times' summation order."""
+    x2d = pad_x(op, x, sr)
+    kc = chunk_slots(op, _staged(op, x2d, windowed))
+    dp = band_dp_plain(op.strips, x2d, sr, c0=op.c0, k_win=op.k_win, kc=kc)
+    return dp > 0 if sr.dtype == torch.bool else dp
+
+
+def band_dp_plain(strips: torch.Tensor, x2d: torch.Tensor, sr: Semiring, *,
+                  c0: int, k_win: int, kc: int) -> torch.Tensor:
+    """Carrier-typed padded dp from strips and a padded (c_blocks, bn) x:
+    each group's x window is gathered, broadcast against the group's strips,
+    ⊗-ed, then ⊕-reduced per kc-slot chunk and across the chunks."""
+    r_rows, bm, kbn = strips.shape
+    k = k_win
+    bn = kbn // k
+    gs = bn // bm
+    n_groups = r_rows // gs
+    _, _, mul, reduce_, _, _ = _carrier(sr)
+    max_base = max(x2d.shape[0] - k, 0)
+    base = (torch.arange(n_groups, device=x2d.device) + c0).clamp(0, max_base)
+    win = x2d[base[:, None] + torch.arange(k, device=x2d.device)]  # (G, K, bn)
+    st = strips.view(n_groups, gs, bm, kbn)
+    if st.dtype == torch.bfloat16:
+        st = st.float()
+    prod = mul(win.reshape(n_groups, 1, 1, kbn), st)
+    part = reduce_(prod.view(n_groups, gs, bm, k // kc, kc * bn), dim=-1)
+    return reduce_(part, dim=-1).reshape(-1)
+
+
+def _kernel_fn():
+    fn = _build.load("bsr_band").sh_band_dp
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _error_string(code: int) -> str:
+    fn = _build.load("bsr_band").sh_error_string
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_char_p
+    return fn(code).decode()
+
+
+def band_dp_cuda(strips: torch.Tensor, x2d: torch.Tensor, sr: Semiring, *,
+                 c0: int, k_win: int, stage_x: bool, kc: int) -> torch.Tensor:
+    """Launch the CUDA kernel: the carrier-typed padded dp (r_rows·bm,).
+
+    Raises on what the kernel does not take and on a refused launch."""
+    if strips.device.type != "cuda" or x2d.device != strips.device:
+        raise ValueError("band_dp_cuda needs strips and x on one CUDA device")
+    carrier, *_ = _carrier(sr)
+    if strips.dim() != 3 or x2d.dim() != 2:
+        raise ValueError("strips must be (r_rows, bm, K·bn) and x (c_blocks, bn)")
+    r_rows, bm, kbn = strips.shape
+    k = k_win
+    if k <= 0 or kbn % k or kc <= 0 or k % kc:
+        raise ValueError(f"bad window: K·bn={kbn}, K={k}, kc={kc}")
+    bn = kbn // k
+    if bn % bm or bn % 4 or r_rows % (bn // bm):
+        raise ValueError(f"kernel needs bn % bm == 0, bn % 4 == 0 and whole "
+                         f"groups: bm={bm}, bn={bn}, r_rows={r_rows}")
+    if x2d.dtype != carrier or x2d.shape[1] != bn or x2d.shape[0] < k:
+        raise ValueError(f"x must be ({k}+, {bn}) {carrier}, got "
+                         f"{tuple(x2d.shape)} {x2d.dtype}")
+    strip_ok = ((torch.float32, torch.bfloat16) if carrier == torch.float32
+                else (torch.int32,))
+    if strips.dtype not in strip_ok:
+        raise ValueError(f"{sr.name} takes strips of {strip_ok}, got {strips.dtype}")
+    if stage_x and kbn * x2d.element_size() > _SMEM_WINDOW_BYTES:
+        raise ValueError(f"x window of {kbn} elements exceeds the staged "
+                         f"path's {_SMEM_WINDOW_BYTES} bytes")
+    if not (strips.is_contiguous() and x2d.is_contiguous()):
+        raise ValueError("strips and x must be contiguous")
+    if strips.data_ptr() % 16 or x2d.data_ptr() % 16:
+        raise ValueError("strips and x must be 16-byte aligned")
+    out = torch.empty(r_rows * bm, dtype=carrier, device=strips.device)
+    stream = torch.cuda.current_stream(strips.device).cuda_stream
+    rc = _kernel_fn()(
+        strips.device.index, strips.data_ptr(), x2d.data_ptr(), out.data_ptr(),
+        r_rows, bm, kbn, k, kc, c0, x2d.shape[0], _SR_CODES[sr.name],
+        _STRIP_CODES[strips.dtype], int(stage_x), stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"bsr_band kernel launch failed: {_error_string(rc)}")
+    LAUNCHES["staged" if stage_x else "streamed"] += 1
+    return out

@@ -1,0 +1,131 @@
+"""Kernel-variant registry and the public spmv entry point.
+
+A *variant* is a named (build, dp) pair, and a :class:`Geometry` carries
+the block-shape knobs — the analogue of the reference's runfile sweep axis.
+PyTorch runs eagerly, so there is no jitted form of :func:`spmv`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from sparseharness_tpu_torch.formats.sparse import COO
+from sparseharness_tpu_torch.ops import bsr_band, torch_ops
+from sparseharness_tpu_torch.semiring import Semiring
+from sparseharness_tpu_torch.utils.device import DeviceLike
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """Block-shape sweep point.
+
+    block_m/block_n: tile shape for blocked variants and the row/width
+    padding multiples for ELL. value_dtype: storage dtype for matrix values
+    ("float32" or "bfloat16" — bf16 halves the bytes per slot; kernels
+    compute in f32)."""
+
+    block_m: int = 8
+    block_n: int = 128
+    value_dtype: str = "float32"
+
+    def __str__(self) -> str:
+        s = f"{self.block_m}x{self.block_n}"
+        if self.value_dtype != "float32":
+            s += f"@{self.value_dtype}"
+        return s
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelVariant:
+    name: str
+    # (coo, sr, geometry, device) → operand on that device
+    build: Callable[[COO, Semiring, Geometry, DeviceLike], Any]
+    # (operand, x, sr, *, n_rows) → ⊕-reduced dp over the padded rows
+    dp: Callable[..., torch.Tensor]
+    description: str = ""
+
+
+VARIANTS: Dict[str, KernelVariant] = {}
+
+
+def register_variant(v: KernelVariant) -> KernelVariant:
+    VARIANTS[v.name] = v
+    return v
+
+
+def get_variant(name: str) -> KernelVariant:
+    try:
+        return VARIANTS[name]
+    except KeyError:
+        raise KeyError(f"unknown kernel variant {name!r}; known: {sorted(VARIANTS)}") from None
+
+
+#: structure-aware fallback chain for variant="auto": the streaming band
+#: kernel when the window is affine, ELL as the universal fallback. It
+#: holds the ported variants only and grows as the port does.
+AUTO_CHAIN = ("bsr_band", "ell")
+
+
+def build_operand(coo: COO, sr: Semiring, variant: str = "ell",
+                  geometry: Geometry = Geometry(), *, device: DeviceLike = None):
+    return get_variant(variant).build(coo, sr, geometry, device)
+
+
+def build_operand_auto(coo: COO, sr: Semiring, geometry: Geometry = Geometry(),
+                       *, device: DeviceLike = None):
+    """(variant_name, operand) for the first buildable AUTO_CHAIN entry."""
+    last = None
+    for name in AUTO_CHAIN:
+        try:
+            return name, get_variant(name).build(coo, sr, geometry, device)
+        except NotImplementedError as e:
+            last = e
+    raise NotImplementedError(f"no variant in {AUTO_CHAIN} applies: {last}")
+
+
+def spmv(
+    operand,
+    x: torch.Tensor,
+    y: Optional[torch.Tensor] = None,
+    *,
+    sr: Semiring,
+    variant: str = "ell",
+    n_rows: int,
+    alpha=None,
+    beta=None,
+) -> torch.Tensor:
+    """y_out[:n_rows] = (α ⊗ (⊕_j A[i,j] ⊗ x[j])) ⊕ (β ⊗ y[i]), on the
+    operand's device."""
+    dp = get_variant(variant).dp(operand, x, sr, n_rows=n_rows)[:n_rows]
+    if y is not None:
+        y = y[:n_rows]
+    return torch_ops.fold_dp(dp, y, sr, alpha, beta)
+
+
+def _dp_ell(op, x, sr, *, n_rows):
+    return torch_ops.dp_ell(op, x, sr)
+
+
+register_variant(KernelVariant(
+    name="ell",
+    build=lambda coo, sr, g, device: torch_ops.build_ell(
+        coo, sr, width_multiple=g.block_n, row_multiple=g.block_m,
+        device=device),
+    dp=_dp_ell,
+    description="Padded-ELL gather + row ⊕-reduce in plain torch; the "
+                "universal fallback and the tests' oracle",
+))
+
+register_variant(KernelVariant(
+    name="bsr_band",
+    build=lambda coo, sr, g, device: bsr_band.build_bsr_band(
+        coo, sr, bm=g.block_m, bn=g.block_n, value_dtype=g.value_dtype,
+        device=device),
+    dp=bsr_band.dp_bsr_band,
+    description="Block-banded CUDA kernel: affine x windows (no gather), "
+                "x staged in shared memory or streamed; pure strip "
+                "streaming for banded/stencil structure",
+))

@@ -1,0 +1,102 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, its
+entry points refuse to run without a card unless asked for the CPU, and
+chip_smoke.py fails without a card or without the repository."""
+
+import ast
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import sparseharness_tpu_torch
+from sparseharness_tpu_torch.algorithms import bfs, make_spmv_problem, pagerank, sssp
+from sparseharness_tpu_torch.formats import banded_coo
+from sparseharness_tpu_torch.ops import build_operand
+from sparseharness_tpu_torch.semiring import PLUS_TIMES
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = Path(sparseharness_tpu_torch.__file__).parent
+
+
+def _forbidden(module: str) -> bool:
+    return (module == "jax" or module.startswith("jax.")
+            or module == "sparseharness_tpu" or module.startswith("sparseharness_tpu."))
+
+
+def test_importing_every_module_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import sparseharness_tpu_torch as p\n"
+        "import chip_smoke\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'sparseharness_tpu' or m.startswith('sparseharness_tpu.'))\n"
+        "print(len([m for m in sys.modules if m.startswith('sparseharness_tpu_torch')]))\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20  # every module was imported
+
+
+def test_no_source_names_jax():
+    files = list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) >= 20
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            assert not any(_forbidden(n) for n in names), (path, names)
+
+
+@pytest.mark.parametrize("entry", [
+    lambda coo: build_operand(coo, PLUS_TIMES, "bsr_band"),
+    lambda coo: make_spmv_problem(coo, variant="ell"),
+    lambda coo: sssp(coo, 0),
+    lambda coo: bfs(coo, 0),
+    lambda coo: pagerank(coo),
+], ids=["build_operand", "make_spmv_problem", "sssp", "bfs", "pagerank"])
+def test_entry_points_raise_without_a_card(entry, monkeypatch):
+    """With no card and no explicit device an entry point raises; it never
+    falls back to the CPU on its own."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry(banded_coo(64, 2, seed=1))
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py would run for real")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    """In a directory that holds chip_smoke.py and nothing else of the
+    repository it fails before printing a result."""
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_every_module_is_a_port_module():
+    names = {m.name for m in pkgutil.walk_packages([str(PKG)])}
+    for expected in ("formats", "semiring", "ops", "gold", "harness", "algorithms", "utils"):
+        assert expected in names
