@@ -25,7 +25,26 @@ result. Phases:
 4. the same apps on a small band against the port's NumPy golds;
 5. kernel timing at the main path's f32 shape (CUDA events): each kernel
    path, the plain version, torch.mv on a CSR tensor of the same matrix as
-   the library yardstick, and the bytes/operations bound.
+   the library yardstick, and the bytes/operations bound;
+6. blocked kernels vs plain: the strip kernel of bsr_fused (x gathered in
+   the kernel) and of bsr_ell (x strips gathered before it), and the gen-1
+   tile kernel of bsr_pallas, against their plain versions on the same
+   CUDA tensors: all seven semirings and strip types on three small
+   matrices (143 block-rows; random blocks; one row of 66 tiles, which
+   takes two bsr_fused slabs; gen-1 also with 20 tiles a slab), and at the
+   blocked bench width plus_times in f32 and bf16, min_plus and or_and;
+7. the blocked main path, with the launch counters reset just before and
+   read just after: bench.py's blocked candidate, block_random_coo(131072,
+   2, seed=5) with 33,554,432 nnz, through make_spmv_problem and
+   benchmark_spmv, gold-gated for bsr_fused and bsr_ell in f32 and bf16
+   and bsr_pallas in f32; then sssp, bfs and pagerank with variant="auto",
+   which must resolve bsr_fused (one bsr_fused launch per step), each
+   certified;
+8. the variant gate of bench.py: every registered variant gold-checked on
+   random_coo(1138, 1138, 4054, seed=0), bsr_band and dia on
+   banded_coo(1138, 8, seed=0);
+9. kernel timing at the blocked shape: each blocked kernel, its plain
+   version, torch.mv on a CSR tensor of the same matrix, and the bound.
 
 Then the kernels line, the nvidia-smi line and, last, the ok line.
 """
@@ -47,6 +66,9 @@ SMALL_N = 3000
 SMALL_BAND = 40
 PT_DELTA = 1e-5    # plus_times tolerance, scaled by max(1, |ref|, Σ|a·x|)
 F32_PEAK_OPS = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
+BLOCK_N = 131072   # bench.py's blocked candidate: 16,384 block-rows of 2 tiles
+BLOCK_SEED = 5
+BLOCKED = ("bsr_fused", "bsr_ell", "bsr_pallas")
 SEMIRINGS = ("plus_times", "min_plus", "or_and", "max_min", "max_times",
              "max_right", "min_right")
 
@@ -111,6 +133,22 @@ def max_err(torch, a, b) -> float:
     return float(diff.max())
 
 
+def check_kernel(torch, label, got, ref, bound) -> float:
+    """Bit-exact, or plus_times (bound given) within
+    PT_DELTA · max(1, |plain|, Σ|a·x|); the largest |got − ref|."""
+    torch.cuda.synchronize()
+    if bound is None:
+        if not torch.equal(got, ref):
+            raise AssertionError(f"{label}: kernel != plain in "
+                                 f"{int((got != ref).sum())} rows")
+        return 0.0
+    tol = PT_DELTA * torch.maximum(torch.maximum(ref.abs(), bound), torch.ones_like(ref))
+    bad = int(((got - ref).abs() > tol).sum())
+    if bad:
+        raise AssertionError(f"{label}: kernel outside tolerance in {bad} rows")
+    return max_err(torch, got, ref)
+
+
 def kernel_vs_plain(torch, coo, errs) -> dict:
     """Both kernel paths against the plain version on one matrix; the worst
     plus_times error per path goes into ``errs``."""
@@ -137,25 +175,10 @@ def kernel_vs_plain(torch, coo, errs) -> dict:
                                       ("streamed", False, 1)):
                 got = bsr_band.band_dp_cuda(op.strips, x2d, sr, c0=op.c0,
                                             k_win=op.k_win, stage_x=stage_x, kc=kc)
-                torch.cuda.synchronize()
                 ref = bsr_band.band_dp_plain(op.strips, x2d, sr, c0=op.c0,
                                              k_win=op.k_win, kc=kc)
-                if bound is None:
-                    if not torch.equal(got, ref):
-                        raise AssertionError(
-                            f"{path} kernel != plain for {name}/{vd}/kc={kc}: "
-                            f"{int((got != ref).sum())} rows differ")
-                    err = 0.0
-                else:
-                    tol = PT_DELTA * torch.maximum(
-                        torch.maximum(ref.abs(), bound), torch.ones_like(ref))
-                    bad = int(((got - ref).abs() > tol).sum())
-                    if bad:
-                        raise AssertionError(
-                            f"{path} kernel outside tolerance for {name}/{vd}/"
-                            f"kc={kc}: {bad} rows")
-                    err = max_err(torch, got, ref)
-                errs[path] = max(errs[path], err)
+                errs[path] = max(errs[path], check_kernel(
+                    torch, f"{path} {name}/{vd}/kc={kc}", got, ref, bound))
                 checked += 1
             del op, x2d
     return {"rows": n, "nnz": coo.nnz, "comparisons": checked}
@@ -317,14 +340,294 @@ def kernel_times(torch, coo) -> dict:
         res[vd] = entry
         del op, x2d
     # library yardstick: cuSPARSE SpMV through torch.mv on a CSR tensor of
-    # the same matrix (plus_times, f32); the port never calls it
+    # the same matrix (plus_times, f32)
+    csr = csr_of(torch, coo)
+    res["float32"]["library_ms"] = time_ms(torch, lambda: torch.mv(csr, x), 20)
+    return res
+
+
+def one_wide_row(n_rows: int = 600):
+    """600 entries in row 0 over 66 block-columns: K = 66, so bsr_fused's
+    slab height is 56 and its 75 block-rows take two slabs."""
+    from sparseharness_tpu_torch.formats import coo_from_arrays
+
+    cols = np.arange(0, 600 * 14, 14, dtype=np.int32)
+    return coo_from_arrays(np.zeros(600, np.int32), cols,
+                           np.linspace(0.1, 1.0, 600).astype(np.float32),
+                           (n_rows, 8400))
+
+
+def blocked_vs_plain(torch, coo, cases, errs, tiles_per_slab=(None,)) -> int:
+    """The strip kernel (both x sources) and the gen-1 tile kernel against
+    their plain versions on one matrix, for (semiring, strip type) cases;
+    the worst plus_times error per kernel goes into ``errs``. Returns the
+    number of comparisons."""
+    from sparseharness_tpu_torch.ops import bsr, bsr_ell, bsr_fused
+    from sparseharness_tpu_torch.semiring import PLUS_TIMES, get_semiring
+
+    rng = np.random.default_rng(9)
+    checked = 0
+    for name, vd in cases:
+        sr = get_semiring(name)
+        x = random_x(torch, sr, coo.shape[1], rng)
+        fop = bsr_fused.build_bsr_fused(coo, sr, value_dtype=vd, device="cuda")
+        eop = bsr_ell.build_bsr_ell(coo, sr, value_dtype=vd, device="cuda")
+        strips, cols, k, bn = bsr_fused._flat(fop)
+        x2d = bsr.pad_x2d(x, bn, sr)
+        for kernel, st, cl in (("bsr_fused", strips, cols),
+                               ("bsr_ell", eop.tiles, eop.tile_cols)):
+            xt = bsr_ell.gather_x_strips(x2d, cl)
+            ref = bsr_ell.strip_dp_plain(st, xt, sr)
+            bound = (bsr_ell.strip_dp_plain(st.abs(), xt.abs(), PLUS_TIMES)
+                     if name == "plus_times" else None)
+            got = (bsr_ell.strip_dp_cuda(st, x2d, sr, k=k, cols=cl)
+                   if kernel == "bsr_fused" else bsr_ell.strip_dp_cuda(st, xt, sr, k=k))
+            errs[kernel] = max(errs[kernel], check_kernel(
+                torch, f"{kernel} {name}/{vd}", got, ref, bound))
+            checked += 1
+        del fop, eop, strips, cols
+        if vd != "float32":
+            continue  # gen-1 tiles are always the carrier type
+        for tps in tiles_per_slab:
+            gop = bsr.build_bsr(coo, sr, tiles_per_slab=tps or bsr.DEFAULT_TILES_PER_SLAB,
+                                device="cuda")
+            args = (gop.tiles, x2d, gop.tile_cols, gop.seg)
+            ref = bsr.tile_dp_plain(*args, sr)
+            bound = (bsr.tile_dp_plain(gop.tiles.abs(), x2d.abs(), gop.tile_cols,
+                                       gop.seg, PLUS_TIMES)
+                     if name == "plus_times" else None)
+            errs["bsr_pallas"] = max(errs["bsr_pallas"], check_kernel(
+                torch, f"bsr_pallas {name}/tps={tps}", bsr.tile_dp_cuda(*args, sr),
+                ref, bound))
+            checked += 1
+            del gop, args
+    return checked
+
+
+def all_cases(torch):
+    from sparseharness_tpu_torch.semiring import get_semiring
+
+    return [(n, vd) for n in SEMIRINGS for vd in ("float32", "bfloat16")
+            if vd == "float32" or get_semiring(n).dtype == torch.float32]
+
+
+def blocked_main_path(torch, coo, out) -> None:
+    """bench.py's blocked candidate through make_spmv_problem and
+    benchmark_spmv, gold-gated, for each blocked variant."""
+    from sparseharness_tpu_torch.algorithms import make_spmv_problem
+    from sparseharness_tpu_torch.gold import Correctness, spmv_abs_bound, spmv_gold
+    from sparseharness_tpu_torch.harness import (
+        BenchmarkConfig, benchmark_spmv, device_hbm_bandwidth, variant_bytes,
+    )
+    from sparseharness_tpu_torch.ops import Geometry
+    from sparseharness_tpu_torch.semiring import PLUS_TIMES
+
+    bw = device_hbm_bandwidth(torch.cuda.get_device_name(0))
+    config = BenchmarkConfig(trials=5, launches_per_trial=20)
+    golds = {}
+    for variant, vd in (("bsr_fused", "float32"), ("bsr_fused", "bfloat16"),
+                        ("bsr_ell", "float32"), ("bsr_ell", "bfloat16"),
+                        ("bsr_pallas", "float32")):
+        geom = Geometry(8, 128, vd)
+        prob = make_spmv_problem(coo, PLUS_TIMES, variant, geom, seed=4)
+        if vd not in golds:
+            gold_coo = coo
+            if vd == "bfloat16":
+                # the gate's gold uses the values as the bf16 strips hold them
+                vals = torch.from_numpy(coo.vals).to(torch.bfloat16).float().numpy()
+                gold_coo = coo.with_values(vals)
+            x_np = prob.x0.cpu().numpy()
+            golds[vd] = (spmv_gold(gold_coo, x_np, prob.y.cpu().numpy(), PLUS_TIMES),
+                         spmv_abs_bound(gold_coo, x_np))
+        gold, scale = golds[vd]
+        res = benchmark_spmv(prob, gold=gold, config=config, geometry=geom,
+                             matrix_name=f"block{BLOCK_N}", nnz=coo.nnz,
+                             gold_scale=scale)
+        if res.correctness is not Correctness.CORRECT:
+            raise AssertionError(f"{variant}@{geom}: {res.correctness}")
+        n_bytes = variant_bytes(variant, prob.operand, prob.x0.numel() * 4,
+                                coo.shape[0] * 4)
+        out.append({
+            "variant": variant, "geometry": str(geom),
+            "correctness": res.correctness.value,
+            "median_ms": res.median_ns * 1e-6, "best_ms": res.best_ns * 1e-6,
+            "gnnz_per_s": res.gnnz_per_s,
+            "bytes_per_s": n_bytes / (res.median_ns * 1e-9),
+            "bound_ms": n_bytes / bw * 1e3,
+            "roofline_frac": res.roofline_frac,
+        })
+        del prob
+
+
+def blocked_fixpoints(torch, coo, out) -> None:
+    """sssp, bfs and pagerank with variant="auto" on the blocked matrix.
+    auto must resolve bsr_fused: each step launches it once. Certificates:
+    sssp's x is tight (x[0] = 0 and A⊗x = x on every other row, with
+    positive weights the shortest paths), bfs levels equal the NumPy gold,
+    pagerank's residual is below delta and Σx ≈ 1."""
+    from sparseharness_tpu_torch.algorithms import bfs, pagerank, sssp
+    from sparseharness_tpu_torch.formats import pagerank_normalise
+    from sparseharness_tpu_torch.gold import bfs_levels_gold
+    from sparseharness_tpu_torch.ops import LAUNCHES, build_operand, dp_bsr_fused_plain, fold_dp
+    from sparseharness_tpu_torch.semiring import MIN_PLUS, PLUS_TIMES
+
+    n = coo.shape[0]
+
+    def plain_spmv(op, x, sr):
+        return fold_dp(dp_bsr_fused_plain(op, x, sr, n_rows=n)[:n], None, sr, None, None)
+
+    def run(app, *args, **kw):
+        before = LAUNCHES["bsr_fused"]
+        t0 = time.perf_counter()
+        r = app(coo, *args, variant="auto", **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launched = LAUNCHES["bsr_fused"] - before
+        if launched != r.iterations:
+            raise AssertionError(f"{app.__name__}: {launched} bsr_fused launches for "
+                                 f"{r.iterations} steps: auto did not resolve bsr_fused")
+        return r, dt
+
+    r, dt = run(sssp, 0)
+    op = build_operand(coo, MIN_PLUS, "bsr_fused")
+    ax = plain_spmv(op, r.x, MIN_PLUS)
+    cert = bool(r.converged and float(r.x[0]) == 0.0 and bool((r.x >= 0).all())
+                and torch.equal(ax[1:], r.x[1:]))
+    del op, ax
+    out.append({"app": "sssp", "variant": "auto -> bsr_fused", "iterations": r.iterations,
+                "converged": r.converged, "seconds": dt,
+                "certificate": "x[0] == 0, x >= 0 and A⊗x == x on rows != 0",
+                "certified": cert})
+    if not cert:
+        raise AssertionError("blocked sssp certificate failed")
+
+    r, dt = run(bfs, 0)
+    t0 = time.perf_counter()
+    want = bfs_levels_gold(coo, 0)
+    gold_s = time.perf_counter() - t0
+    cert = bool(r.converged and np.array_equal(r.aux.cpu().numpy(), want))
+    out.append({"app": "bfs", "variant": "auto -> bsr_fused", "iterations": r.iterations,
+                "converged": r.converged, "seconds": dt, "gold_seconds": gold_s,
+                "levels": int(want.max()), "certificate": "levels == bfs_levels_gold",
+                "certified": cert})
+    if not cert:
+        raise AssertionError("blocked bfs certificate failed")
+
+    delta, damping = 1e-6, 0.85
+    r, dt = run(pagerank, damping, delta=delta)
+    op = build_operand(pagerank_normalise(coo, damping), PLUS_TIMES, "bsr_fused")
+    teleport = np.float32((1.0 - damping) / n)
+    resid = float((plain_spmv(op, r.x, PLUS_TIMES) + teleport - r.x).abs().max())
+    total = float(r.x.double().sum())
+    cert = bool(r.converged and resid < delta and abs(total - 1.0) < 1e-3)
+    del op
+    out.append({"app": "pagerank", "variant": "auto -> bsr_fused",
+                "iterations": r.iterations, "converged": r.converged, "seconds": dt,
+                "certificate": "|A·x + t − x| < delta and Σx ≈ 1",
+                "residual": resid, "sum": total, "certified": cert})
+    if not cert:
+        raise AssertionError("blocked pagerank certificate failed")
+
+
+def variant_gate(torch) -> dict:
+    """bench.py's gate: every registered variant on its home structure,
+    gold-checked CORRECT on the card."""
+    from sparseharness_tpu_torch.algorithms import make_spmv_problem
+    from sparseharness_tpu_torch.formats import banded_coo, random_coo
+    from sparseharness_tpu_torch.gold import Correctness, spmv_gold
+    from sparseharness_tpu_torch.harness import BenchmarkConfig, benchmark_spmv
+    from sparseharness_tpu_torch.ops import VARIANTS
+    from sparseharness_tpu_torch.semiring import PLUS_TIMES
+
+    small = random_coo(1138, 1138, 4054, seed=0)
+    band = banded_coo(1138, 8, seed=0)
+    gate = [(v, small) for v in sorted(VARIANTS) if v not in ("bsr_band", "dia")]
+    gate += [("bsr_band", band), ("dia", band)]
+    for variant, m in gate:
+        prob = make_spmv_problem(m, variant=variant, seed=1)
+        gold = spmv_gold(m, prob.x0.cpu().numpy(), prob.y.cpu().numpy(), PLUS_TIMES)
+        res = benchmark_spmv(prob, gold=gold, config=BenchmarkConfig(trials=1))
+        if res.correctness is not Correctness.CORRECT:
+            raise AssertionError(f"gate: {variant} is {res.correctness}")
+    return {"variants": [v for v, _ in gate], "correct": len(gate)}
+
+
+def csr_of(torch, coo):
+    """A CUDA CSR tensor of coo (f32), for torch.mv as the library
+    yardstick; the port never calls it."""
+    n = coo.shape[0]
     counts = np.bincount(coo.rows, minlength=n)
     crow = torch.from_numpy(np.concatenate([[0], np.cumsum(counts)]).astype(np.int32))
     order = np.lexsort((coo.cols, coo.rows))
-    csr = torch.sparse_csr_tensor(
+    return torch.sparse_csr_tensor(
         crow, torch.from_numpy(coo.cols[order]), torch.from_numpy(coo.vals[order]),
         size=coo.shape).cuda()
-    res["float32"]["library_ms"] = time_ms(torch, lambda: torch.mv(csr, x), 20)
+
+
+def tensor_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: int, n_ops: int, bw: float) -> dict:
+    bytes_ms, ops_ms = n_bytes / bw * 1e3, n_ops / F32_PEAK_OPS * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": n_bytes}
+
+
+def blocked_kernel_times(torch, coo) -> dict:
+    """Per-kernel ms at the blocked main path's shape (f32, and bf16 for the
+    strip kernel), the plain version's ms, the bound and the library
+    yardstick's ms. The bound counts each kernel input read once and the
+    output written once; the operations are one ⊗ and one ⊕ per slot."""
+    from sparseharness_tpu_torch.harness import device_hbm_bandwidth
+    from sparseharness_tpu_torch.ops import bsr, bsr_ell, bsr_fused
+    from sparseharness_tpu_torch.semiring import PLUS_TIMES
+
+    bw = device_hbm_bandwidth(torch.cuda.get_device_name(0))
+    n = coo.shape[0]
+    x = random_x(torch, PLUS_TIMES, n, np.random.default_rng(12))
+    res = {}
+    for vd in ("float32", "bfloat16"):
+        fop = bsr_fused.build_bsr_fused(coo, PLUS_TIMES, value_dtype=vd, device="cuda")
+        strips, cols, k, bn = bsr_fused._flat(fop)
+        x2d = bsr.pad_x2d(x, bn, PLUS_TIMES)
+        out_bytes = strips.shape[0] * strips.shape[1] * 4
+        entry = {"bsr_fused": bound(tensor_bytes(strips, cols, x2d) + out_bytes,
+                                    2 * strips.numel(), bw)}
+        entry["bsr_fused"]["ms"] = time_ms(torch, lambda: bsr_ell.strip_dp_cuda(
+            strips, x2d, PLUS_TIMES, k=k, cols=cols), 50)
+        entry["bsr_fused"]["plain_ms"] = time_ms(torch, lambda: bsr_ell.strip_dp_plain(
+            strips, bsr_ell.gather_x_strips(x2d, cols), PLUS_TIMES), 10)
+        del fop, strips, cols
+        eop = bsr_ell.build_bsr_ell(coo, PLUS_TIMES, value_dtype=vd, device="cuda")
+        xt = bsr_ell.gather_x_strips(x2d, eop.tile_cols)
+        out_bytes = eop.tiles.shape[0] * eop.tiles.shape[1] * 4
+        entry["bsr_ell"] = bound(tensor_bytes(eop.tiles, xt) + out_bytes,
+                                 2 * eop.tiles.numel(), bw)
+        entry["bsr_ell"]["ms"] = time_ms(torch, lambda: bsr_ell.strip_dp_cuda(
+            eop.tiles, xt, PLUS_TIMES, k=k), 50)
+        entry["bsr_ell"]["gather_ms"] = time_ms(
+            torch, lambda: bsr_ell.gather_x_strips(x2d, eop.tile_cols), 50)
+        entry["bsr_ell"]["plain_ms"] = time_ms(torch, lambda: bsr_ell.strip_dp_plain(
+            eop.tiles, bsr_ell.gather_x_strips(x2d, eop.tile_cols), PLUS_TIMES), 10)
+        del eop, xt
+        if vd == "float32":
+            gop = bsr.build_bsr(coo, PLUS_TIMES, device="cuda")
+            args = (gop.tiles, x2d, gop.tile_cols, gop.seg)
+            out_bytes = gop.seg.shape[0] * (gop.seg.shape[1] - 1) * gop.tiles.shape[2] * 4
+            entry["bsr_pallas"] = bound(tensor_bytes(*args) + out_bytes,
+                                        2 * gop.tiles.numel(), bw)
+            entry["bsr_pallas"]["slabs"] = list(gop.tiles.shape[:2])
+            entry["bsr_pallas"]["ms"] = time_ms(
+                torch, lambda: bsr.tile_dp_cuda(*args, PLUS_TIMES), 50)
+            entry["bsr_pallas"]["plain_ms"] = time_ms(
+                torch, lambda: bsr.tile_dp_plain(*args, PLUS_TIMES), 10)
+            del gop, args
+        res[vd] = entry
+    csr = csr_of(torch, coo)
+    res["library_ms"] = time_ms(torch, lambda: torch.mv(csr, x), 20)
+    del csr
     return res
 
 
@@ -334,7 +637,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    from sparseharness_tpu_torch.formats import banded_coo
+    from sparseharness_tpu_torch.formats import banded_coo, block_random_coo, random_coo
     from sparseharness_tpu_torch.ops import LAUNCHES, _build
 
     card = torch.cuda.get_device_name(0)
@@ -357,7 +660,9 @@ def main() -> int:
     with Phase("data") as f:
         coo = banded_coo(FULL_N, BAND, seed=1)
         small = banded_coo(SMALL_N, SMALL_BAND, seed=3)
-        f.update(rows=coo.shape[0], nnz=coo.nnz)
+        bcoo = block_random_coo(BLOCK_N, 2, bm=8, bn=128, seed=BLOCK_SEED)
+        f.update(rows=coo.shape[0], nnz=coo.nnz, block_rows=bcoo.shape[0],
+                 block_nnz=bcoo.nnz)
 
     errs = {"staged": 0.0, "streamed": 0.0}
     with Phase("kernel_vs_plain_small") as f:
@@ -377,8 +682,8 @@ def main() -> int:
         f.update(card=card, nvidia_smi=smi, runs=app_lines)
     launches = dict(LAUNCHES)
     emit({"phase": "main_path_launches", "launches": launches})
-    for path, count in launches.items():
-        if count <= 0:
+    for path in ("staged", "streamed"):
+        if launches[path] <= 0:
             raise AssertionError(f"the {path} kernel never launched on the main path")
 
     with Phase("small_apps_vs_gold") as f:
@@ -388,10 +693,48 @@ def main() -> int:
         times = kernel_times(torch, coo)
         f.update(card=card, nvidia_smi=smi, times=times)
 
+    berrs = dict.fromkeys(BLOCKED, 0.0)
+    with Phase("blocked_kernel_vs_plain_small") as f:
+        checked = 0
+        for m in (random_coo(1138, 1138, 4054, seed=0),
+                  block_random_coo(4096, 2, seed=BLOCK_SEED), one_wide_row()):
+            checked += blocked_vs_plain(torch, m, all_cases(torch), berrs,
+                                        tiles_per_slab=(None, 20))
+        f["comparisons"] = checked
+    with Phase("blocked_kernel_vs_plain_full") as f:
+        f["comparisons"] = blocked_vs_plain(
+            torch, bcoo, [("plus_times", "float32"), ("plus_times", "bfloat16"),
+                          ("min_plus", "float32"), ("or_and", "float32")], berrs)
+        f["max_abs_err"] = berrs
+
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    bspmv_lines, bapp_lines = [], []
+    with Phase("main_path_blocked_spmv") as f:
+        blocked_main_path(torch, bcoo, bspmv_lines)
+        f.update(card=card, nvidia_smi=smi, runs=bspmv_lines)
+    with Phase("main_path_blocked_fixpoints") as f:
+        blocked_fixpoints(torch, bcoo, bapp_lines)
+        f.update(card=card, nvidia_smi=smi, runs=bapp_lines)
+    blaunches = dict(LAUNCHES)
+    emit({"phase": "main_path_blocked_launches", "launches": blaunches})
+    for kernel in BLOCKED:
+        if blaunches[kernel] <= 0:
+            raise AssertionError(f"the {kernel} kernel never launched on the blocked "
+                                 "main path")
+    launches.update({k: blaunches[k] for k in BLOCKED})
+
+    with Phase("variant_gate") as f:
+        f.update(variant_gate(torch))
+
+    with Phase("blocked_kernel_times") as f:
+        btimes = blocked_kernel_times(torch, bcoo)
+        f.update(card=card, nvidia_smi=smi, times=btimes)
+
     f32 = times["float32"]
     replaces = {"staged": "sparseharness_tpu/ops/pallas_bsr_band.py:180",
                 "streamed": "sparseharness_tpu/ops/pallas_bsr_band.py:259"}
-    emit({"kernels": [{
+    kernels = [{
         "name": f"bsr_band_{path}",
         "route": "cuda",
         "source": "sparseharness_tpu_torch/ops/csrc/bsr_band.cu",
@@ -403,7 +746,23 @@ def main() -> int:
         "bound_ms": f32["bound_ms"],
         "bound_by": f32["bound_by"],
         "library_ms": f32["library_ms"],
-    } for path in ("staged", "streamed")]})
+    } for path in ("staged", "streamed")]
+    sources = {"bsr_fused": "sparseharness_tpu_torch/ops/csrc/bsr_strips.cu",
+               "bsr_ell": "sparseharness_tpu_torch/ops/csrc/bsr_strips.cu",
+               "bsr_pallas": "sparseharness_tpu_torch/ops/csrc/bsr_tiles.cu"}
+    replaces = {"bsr_fused": "sparseharness_tpu/ops/pallas_bsr_fused.py:105",
+                "bsr_ell": "sparseharness_tpu/ops/pallas_bsr_ell.py:173",
+                "bsr_pallas": "sparseharness_tpu/ops/pallas_bsr.py:231"}
+    for kernel in BLOCKED:
+        t = btimes["float32"][kernel]
+        kernels.append({
+            "name": kernel, "route": "cuda", "source": sources[kernel],
+            "replaces": replaces[kernel], "launches": launches[kernel],
+            "max_abs_err": berrs[kernel], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": btimes["library_ms"],
+        })
+    emit({"kernels": kernels})
     print(nvidia_smi())
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})

@@ -1,13 +1,18 @@
 from sparseharness_tpu_torch.formats.sparse import (  # noqa: F401
+    BSR,
     COO,
     CSR,
     ELL,
+    bsr_from_coo,
     coo_from_arrays,
     fold_duplicates,
     round_up,
 )
 from sparseharness_tpu_torch.formats.generate import (  # noqa: F401
     banded_coo,
+    block_random_coo,
+    chained_power_law_coo,
+    power_law_coo,
     random_coo,
     random_graph_coo,
 )

@@ -69,3 +69,67 @@ def banded_coo(n: int, bandwidth: int, dtype=np.float32, seed: int = 0) -> COO:
     cols = np.concatenate(cols_list)
     vals = rng.uniform(0.1, 1.0, size=len(rows)).astype(dtype)
     return _dedup(rows, cols, vals, (n, n))
+
+
+def power_law_coo(n: int, nnz: int, alpha: float = 1.5, dtype=np.float32,
+                  seed: int = 0) -> COO:
+    """Power-law pattern: zipf-distributed column popularity over uniform
+    rows, with half of the entries transposed so that some rows are heavy
+    too — the ragged-row stress case."""
+    rng = np.random.default_rng(seed)
+    ranks = rng.zipf(alpha, size=nnz).astype(np.int64)
+    cols = np.minimum(ranks - 1, n - 1)
+    rows = rng.integers(0, n, size=nnz, dtype=np.int64)
+    swap = rng.random(nnz) < 0.5
+    rows2 = np.where(swap, cols, rows)
+    cols2 = np.where(swap, rows, cols)
+    vals = rng.uniform(0.1, 1.0, size=nnz).astype(dtype)
+    return _dedup(rows2, cols2, vals, (n, n))
+
+
+def chained_power_law_coo(n: int, clusters: int, nnz_per_node: float = 4.0,
+                          alpha: float = 1.5, dtype=np.float32, seed: int = 0,
+                          weight_range=(0.1, 1.0)) -> COO:
+    """``clusters`` power-law blobs strung on a path by bidirectional bridge
+    edges: scattered local structure with a diameter that grows with
+    ``clusters``. The order is ``clusters * max(n // clusters, 2)``; read it
+    off ``.shape``."""
+    m = max(n // clusters, 2)
+    sub = power_law_coo(m, int(nnz_per_node * m), alpha=alpha, seed=seed + 1)
+    lo, hi = weight_range
+    shift = np.arange(clusters, dtype=np.int64)[:, None] * m
+    rows = [(sub.rows.astype(np.int64)[None, :] + shift).reshape(-1)]
+    cols = [(sub.cols.astype(np.int64)[None, :] + shift).reshape(-1)]
+    vals = [np.tile(np.abs(sub.vals).astype(dtype) + lo, clusters)]
+    link = np.arange(1, clusters, dtype=np.int64) * m
+    rows.append(np.concatenate([link, link - 1]))
+    cols.append(np.concatenate([link - 1, link]))
+    vals.append(np.full(2 * link.size, (lo + hi) / 2, dtype))
+    n_tot = clusters * m
+    return _dedup(np.concatenate(rows), np.concatenate(cols),
+                  np.concatenate(vals), (n_tot, n_tot))
+
+
+def block_random_coo(n: int, blocks_per_row: int, bm: int = 8, bn: int = 128,
+                     dtype=np.float32, seed: int = 0,
+                     value_range=(0.1, 1.0)) -> COO:
+    """Block-structured random sparsity: every bm-row block-row gets
+    ``blocks_per_row`` fully occupied (bm, bn) blocks at distinct random
+    block-columns, the structure blocked layouts exist for. Entries come in
+    block order, not sorted by row."""
+    rng = np.random.default_rng(seed)
+    n_br = max(n // bm, 1)
+    n_bc = max(n // bn, 1)
+    k = min(blocks_per_row, n_bc)
+    # distinct block-cols per block-row: the k smallest of random keys
+    keys = rng.random((n_br, n_bc))
+    bcols = np.argpartition(keys, k - 1, axis=1)[:, :k]
+    br = np.repeat(np.arange(n_br, dtype=np.int64), k)
+    bc = bcols.reshape(-1).astype(np.int64)
+    rr = (br[:, None] * bm + np.arange(bm)[None, :]).reshape(-1)
+    rows = np.repeat(rr, bn)
+    cc = bc[:, None] * bn + np.arange(bn)[None, :]
+    cols = np.tile(cc.reshape(len(br), 1, bn), (1, bm, 1)).reshape(-1)
+    vals = rng.uniform(*value_range, size=len(rows)).astype(dtype)
+    keep = (rows < n) & (cols < n)
+    return coo_from_arrays(rows[keep], cols[keep], vals[keep], (n, n))

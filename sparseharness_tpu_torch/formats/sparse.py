@@ -3,7 +3,8 @@
 - :class:`COO` — the load format: coordinate triples, duplicates allowed;
 - :class:`CSR` — indptr/indices/data, the step from COO to ELL;
 - :class:`ELL` — rows padded to a common width, rounded up to the
-  geometry's row and width multiples.
+  geometry's row and width multiples;
+- :class:`BSR` — the nonzero (bm, bn) tiles, stored densely.
 
 All containers are plain NumPy. Operands move to a torch device when a
 variant builds them (``ops``), outside any timed region.
@@ -157,3 +158,69 @@ class ELL:
     def vals_filled(self, zero) -> np.ndarray:
         """Values with pad slots set to the semiring ⊕-identity."""
         return np.where(self.mask, self.vals, np.asarray(zero, self.vals.dtype))
+
+
+@dataclasses.dataclass(frozen=True)
+class BSR:
+    """Block-sparse rows: only nonzero (bm, bn) tiles are stored, densely.
+
+    ``tiles[t]`` is the dense tile at block-row ``tile_rows[t]`` / block-col
+    ``tile_cols[t]``; tiles are sorted by (row, col). ``block_ptr`` is the
+    CSR-style indptr over block rows. Pad slots inside a tile hold
+    ``fill_zero`` (a semiring ⊕-identity chosen at construction).
+    """
+
+    tiles: np.ndarray  # (ntiles, bm, bn)
+    tile_rows: np.ndarray  # int32 (ntiles,)
+    tile_cols: np.ndarray  # int32 (ntiles,)
+    block_ptr: np.ndarray  # int32 (nblockrows+1,)
+    shape: Tuple[int, int]  # logical
+    fill_zero: float
+
+    @property
+    def bm(self) -> int:
+        return self.tiles.shape[1]
+
+    @property
+    def bn(self) -> int:
+        return self.tiles.shape[2]
+
+    @property
+    def ntiles(self) -> int:
+        return int(self.tiles.shape[0])
+
+    @property
+    def padded_shape(self) -> Tuple[int, int]:
+        return (round_up(self.shape[0], self.bm), round_up(self.shape[1], self.bn))
+
+
+def bsr_tile_key_base(n_cols: int, bn: int) -> int:
+    """The multiplier of the block-row in a tile key, row·base + col: one
+    more than the block-column count, as the JAX package keys its tiles."""
+    return round_up(max(n_cols, 1), bn) // bn + 1
+
+
+def bsr_from_coo(coo: COO, bm: int, bn: int, zero=0.0) -> BSR:
+    """The BSR of a duplicate-free COO; an empty matrix gets one tile of
+    ``zero`` at block (0, 0)."""
+    n_rows_p = round_up(max(coo.shape[0], 1), bm)
+    n_block_rows = n_rows_p // bm
+    base = bsr_tile_key_base(coo.shape[1], bn)
+    tile_key = (coo.rows // bm).astype(np.int64) * base + coo.cols // bn
+    uniq, inverse = np.unique(tile_key, return_inverse=True)
+    ntiles = len(uniq)
+    tile_rows = (uniq // base).astype(np.int32)
+    tile_cols = (uniq % base).astype(np.int32)
+    tiles = np.full((max(ntiles, 1), bm, bn), zero, dtype=coo.vals.dtype)
+    if ntiles:
+        tiles[inverse, coo.rows % bm, coo.cols % bn] = coo.vals
+    else:
+        tile_rows = np.zeros(1, dtype=np.int32)
+        tile_cols = np.zeros(1, dtype=np.int32)
+    block_ptr = np.zeros(n_block_rows + 1, dtype=np.int32)
+    np.cumsum(np.bincount(tile_rows, minlength=n_block_rows), out=block_ptr[1:])
+    return BSR(
+        tiles=tiles, tile_rows=tile_rows, tile_cols=tile_cols,
+        block_ptr=block_ptr, shape=coo.shape,
+        fill_zero=float(zero) if np.issubdtype(coo.vals.dtype, np.floating) else zero,
+    )

@@ -37,17 +37,23 @@ def _operand_tensors(operand):
 
 
 def variant_bytes(variant: str, operand, x_bytes: int, out_bytes: int) -> int:
-    """Least device-memory traffic for one SpMV with this operand.
+    """Least device-memory traffic for one SpMV with this operand, by the
+    JAX package's rules, so that roofline_frac means the same in both.
 
-    Blocked kernels (bsr_band): every operand array once + x once + the
-    output once. ``ell`` gathers one x element per operand slot, with no
-    reuse to count on, so it is charged that gather instead of one x pass."""
+    Blocked kernels (bsr_*): every operand array once + x once + the output
+    once. ``ell`` gathers one x element per operand slot, with no reuse to
+    count on, so it is charged that gather instead of one x pass;
+    ``coo_seg`` one x element per nonzero plus the segment reduction's
+    read-modify-write of dp per nonzero."""
     tensors = _operand_tensors(operand)
     operand_bytes = sum(t.numel() * t.element_size() for t in tensors)
+    itemsize = max((t.element_size() for t in tensors), default=4)
     if variant == "ell":
         slots = max(t.numel() for t in tensors)
-        itemsize = max(t.element_size() for t in tensors)
         return operand_bytes + slots * itemsize + out_bytes
+    if variant == "coo_seg":
+        nnz_pad = max(t.shape[0] for t in tensors)
+        return operand_bytes + 2 * nnz_pad * itemsize + out_bytes
     return operand_bytes + x_bytes + out_bytes
 
 

@@ -5,6 +5,10 @@ interface, loaded with ctypes. The libraries go to ``build/sh_kernels/
 <digest>/`` beside the package, keyed by a hash of every source and the
 nvcc flags, so an edit rebuilds and an unchanged tree reuses the build.
 Only the sources in the checkout are compiled; a failed build raises.
+
+It also holds what every kernel library shares: the semiring and strip
+type codes of the C interface (as ``csrc/semiring.cuh``), the launch
+counters, and the check of a launch's return code.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "sh_kernels"
 NVCC_FLAGS = (
@@ -25,6 +31,18 @@ NVCC_FLAGS = (
 )
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+
+#: launches of each kernel since the last reset; a wrapper adds one where it
+#: launches its kernel and nowhere else, so a run that resets the counts
+#: shows which kernels its work went through
+LAUNCHES: Dict[str, int] = {"staged": 0, "streamed": 0, "bsr_fused": 0,
+                            "bsr_ell": 0, "bsr_pallas": 0}
+
+#: semiring codes of the C interface, as csrc/semiring.cuh:SrCode
+SR_CODES = {"plus_times": 0, "min_plus": 1, "or_and": 2, "max_min": 3,
+            "max_times": 4, "max_right": 5, "min_right": 6}
+#: strip (tile) type codes, as csrc/semiring.cuh:StripCode
+STRIP_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 
 
 def _nvcc() -> str:
@@ -95,4 +113,23 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _LOADED[name] = lib
     return lib
+
+
+def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """``symbol`` of library ``name`` with its argument types set and an int
+    (cudaError_t) result."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def check_launch(name: str, rc: int) -> None:
+    """Raise on a kernel library's non-zero return code, with CUDA's text."""
+    if rc != 0:
+        fn = load(name).sh_error_string
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_char_p
+        raise RuntimeError(f"{name} kernel launch failed: {fn(rc).decode()}")
 

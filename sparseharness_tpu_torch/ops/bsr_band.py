@@ -35,8 +35,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from sparseharness_tpu_torch.formats.sparse import COO, fold_duplicates, round_up
+from sparseharness_tpu_torch.formats.sparse import COO, round_up
 from sparseharness_tpu_torch.ops import _build
+from sparseharness_tpu_torch.ops.bsr import _check_layout, _check_strip_dtype, fold_on_device
 from sparseharness_tpu_torch.semiring import Semiring
 from sparseharness_tpu_torch.semiring.core import _carrier, _np_fold_for
 from sparseharness_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -51,13 +52,9 @@ _MAX_GROUP_BYTES = 3 * 1024 * 1024
 #: bn = 128 (≤ 4 KB) it always does on this card
 _SMEM_WINDOW_BYTES = 48 * 1024
 
-#: launches of each kernel path since the last reset (a run resets them to
-#: show which paths its work went through)
-LAUNCHES = {"staged": 0, "streamed": 0}
-
-_SR_CODES = {"plus_times": 0, "min_plus": 1, "or_and": 2, "max_min": 3,
-             "max_times": 4, "max_right": 5, "min_right": 6}
-_STRIP_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+#: the shared launch counters; this kernel counts its two paths as
+#: "staged" and "streamed"
+LAUNCHES = _build.LAUNCHES
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,14 +77,15 @@ def build_bsr_band(coo: COO, sr: Semiring, bm: int = 8, bn: int = 128,
     """Detect the band window and scatter the entries into dense strips.
 
     The per-entry work (window bounds, slots, scatter) runs in torch on the
-    target device; duplicates are ⊕-folded on the host first."""
+    target device; duplicates, where the device finds any, are ⊕-folded on
+    the host first."""
     device = resolve_device(device)
     if bn % bm != 0:
         raise NotImplementedError("bsr_band requires bn % bm == 0")
     gs = bn // bm  # block-rows per x-block-aligned group
     n, c = coo.shape
     _, _, _, _, zero, as_int = _carrier(sr)
-    coo = fold_duplicates(coo, _np_fold_for(sr, as_int))
+    coo = fold_on_device(coo, _np_fold_for(sr, as_int), device)
     c_blocks = round_up(max(c, 1), bn) // bn
     n_block_rows = round_up(max(n, 1), bm) // bm
     n_groups = round_up(n_block_rows, gs) // gs
@@ -236,22 +234,6 @@ def band_dp_plain(strips: torch.Tensor, x2d: torch.Tensor, sr: Semiring, *,
     return reduce_(part, dim=-1).reshape(-1)
 
 
-def _kernel_fn():
-    fn = _build.load("bsr_band").sh_band_dp
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
-                       + [ctypes.c_int] * 10 + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _error_string(code: int) -> str:
-    fn = _build.load("bsr_band").sh_error_string
-    fn.argtypes = [ctypes.c_int]
-    fn.restype = ctypes.c_char_p
-    return fn(code).decode()
-
-
 def band_dp_cuda(strips: torch.Tensor, x2d: torch.Tensor, sr: Semiring, *,
                  c0: int, k_win: int, stage_x: bool, kc: int) -> torch.Tensor:
     """Launch the CUDA kernel: the carrier-typed padded dp (r_rows·bm,).
@@ -273,25 +255,20 @@ def band_dp_cuda(strips: torch.Tensor, x2d: torch.Tensor, sr: Semiring, *,
     if x2d.dtype != carrier or x2d.shape[1] != bn or x2d.shape[0] < k:
         raise ValueError(f"x must be ({k}+, {bn}) {carrier}, got "
                          f"{tuple(x2d.shape)} {x2d.dtype}")
-    strip_ok = ((torch.float32, torch.bfloat16) if carrier == torch.float32
-                else (torch.int32,))
-    if strips.dtype not in strip_ok:
-        raise ValueError(f"{sr.name} takes strips of {strip_ok}, got {strips.dtype}")
+    _check_strip_dtype(strips, sr)
     if stage_x and kbn * x2d.element_size() > _SMEM_WINDOW_BYTES:
         raise ValueError(f"x window of {kbn} elements exceeds the staged "
                          f"path's {_SMEM_WINDOW_BYTES} bytes")
-    if not (strips.is_contiguous() and x2d.is_contiguous()):
-        raise ValueError("strips and x must be contiguous")
-    if strips.data_ptr() % 16 or x2d.data_ptr() % 16:
-        raise ValueError("strips and x must be 16-byte aligned")
+    _check_layout(strips, x2d)
     out = torch.empty(r_rows * bm, dtype=carrier, device=strips.device)
     stream = torch.cuda.current_stream(strips.device).cuda_stream
-    rc = _kernel_fn()(
+    fn = _build.function("bsr_band", "sh_band_dp",
+                         [ctypes.c_int] + [ctypes.c_void_p] * 3
+                         + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+    _build.check_launch("bsr_band", fn(
         strips.device.index, strips.data_ptr(), x2d.data_ptr(), out.data_ptr(),
-        r_rows, bm, kbn, k, kc, c0, x2d.shape[0], _SR_CODES[sr.name],
-        _STRIP_CODES[strips.dtype], int(stage_x), stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"bsr_band kernel launch failed: {_error_string(rc)}")
+        r_rows, bm, kbn, k, kc, c0, x2d.shape[0], _build.SR_CODES[sr.name],
+        _build.STRIP_CODES[strips.dtype], int(stage_x), stream,
+    ))
     LAUNCHES["staged" if stage_x else "streamed"] += 1
     return out

@@ -24,135 +24,13 @@
 // not evict x from L2 — and reads x from shared memory (staged) or L1/L2
 // (streamed). One block per group: 4096 blocks at the bench width.
 //
-// Bit-exactness: min/max/or reductions are exact whatever the order, and
-// each product is rounded once, so every semiring but plus_times gives the
-// plain version's result bit for bit. The inputs hold no NaN: fminf/fmaxf
-// differ from torch.minimum/maximum (and jnp.minimum/maximum) only on NaN.
-// min_plus pads (FLT_MAX + FLT_MAX) overflow to +inf, as in the plain
-// version; the fold's ⊕-clamp removes them. nvcc may contract plus_times'
-// acc + x·a into an FMA, which only plus_times, held to a tolerance, sees.
+// Semirings, loads and bit-exactness: semiring.cuh.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <climits>
-#include <cstdint>
+#include "semiring.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps per block
-
-// semiring codes, as sparseharness_tpu_torch/ops/bsr_band.py:_SR_CODES
-enum SrCode {
-  PLUS_TIMES = 0,
-  MIN_PLUS = 1,
-  OR_AND = 2,  // int32 carrier: ⊕ = max, ⊗ = min on {0, 1}
-  MAX_MIN = 3,
-  MAX_TIMES = 4,
-  MAX_RIGHT = 5,
-  MIN_RIGHT = 6,
-};
-
-// strip dtype codes, as ops/bsr_band.py:_STRIP_CODES
-enum StripCode { STRIP_F32 = 0, STRIP_BF16 = 1, STRIP_I32 = 2 };
-
-template <int SR>
-struct Op;
-
-template <>
-struct Op<PLUS_TIMES> {
-  using T = float;
-  __device__ static T identity() { return 0.0f; }
-  __device__ static T add(T a, T b) { return a + b; }
-  __device__ static T mul(T x, T a) { return x * a; }
-};
-
-template <>
-struct Op<MIN_PLUS> {
-  using T = float;
-  __device__ static T identity() { return __int_as_float(0x7f800000); }  // +inf
-  __device__ static T add(T a, T b) { return fminf(a, b); }
-  __device__ static T mul(T x, T a) { return x + a; }
-};
-
-template <>
-struct Op<OR_AND> {
-  using T = int;
-  __device__ static T identity() { return INT_MIN; }
-  __device__ static T add(T a, T b) { return max(a, b); }
-  __device__ static T mul(T x, T a) { return min(x, a); }
-};
-
-template <>
-struct Op<MAX_MIN> {
-  using T = float;
-  __device__ static T identity() { return -__int_as_float(0x7f800000); }  // -inf
-  __device__ static T add(T a, T b) { return fmaxf(a, b); }
-  __device__ static T mul(T x, T a) { return fminf(x, a); }
-};
-
-template <>
-struct Op<MAX_TIMES> {
-  using T = float;
-  __device__ static T identity() { return -__int_as_float(0x7f800000); }  // -inf
-  __device__ static T add(T a, T b) { return fmaxf(a, b); }
-  __device__ static T mul(T x, T a) { return x * a; }
-};
-
-template <>
-struct Op<MAX_RIGHT> {
-  using T = int;
-  __device__ static T identity() { return INT_MIN; }
-  __device__ static T add(T a, T b) { return max(a, b); }
-  __device__ static T mul(T x, T a) { return a == INT_MIN ? a : x; }
-};
-
-template <>
-struct Op<MIN_RIGHT> {
-  using T = int;
-  __device__ static T identity() { return INT_MAX; }
-  __device__ static T add(T a, T b) { return min(a, b); }
-  __device__ static T mul(T x, T a) { return a == INT_MAX ? a : x; }
-};
-
-// four consecutive strip entries, converted to the compute type; the
-// caller guarantees 16-byte (f32, int32) or 8-byte (bf16) alignment
-__device__ __forceinline__ void load_strip4(const float* p, float (&v)[4]) {
-  const float4 t = __ldcs(reinterpret_cast<const float4*>(p));
-  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-}
-
-__device__ __forceinline__ void load_strip4(const int* p, int (&v)[4]) {
-  const int4 t = __ldcs(reinterpret_cast<const int4*>(p));
-  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-}
-
-__device__ __forceinline__ void load_strip4(const __nv_bfloat16* p, float (&v)[4]) {
-  const uint2 t = __ldcs(reinterpret_cast<const uint2*>(p));
-  // little endian: the lower half of each word is the earlier element
-  v[0] = __bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(t.x & 0xffffu)));
-  v[1] = __bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(t.x >> 16)));
-  v[2] = __bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(t.y & 0xffffu)));
-  v[3] = __bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(t.y >> 16)));
-}
-
-template <bool SHARED>
-__device__ __forceinline__ void load_x4(const float* p, float (&v)[4]) {
-  const float4 t = SHARED ? *reinterpret_cast<const float4*>(p)
-                          : __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-}
-
-template <bool SHARED>
-__device__ __forceinline__ void load_x4(const int* p, int (&v)[4]) {
-  const int4 t = SHARED ? *reinterpret_cast<const int4*>(p)
-                        : __ldg(reinterpret_cast<const int4*>(p));
-  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-}
-
-template <typename T>
-__device__ __forceinline__ T shfl_xor(T v, int lane_mask) {
-  return __shfl_xor_sync(0xffffffffu, v, lane_mask);
-}
+using namespace sh;
 
 // One block per group of gs·bm = bn rows. Each warp takes rows
 // warp, warp + 8, ...; its lanes cover 4 consecutive entries each (128 per
@@ -193,64 +71,42 @@ band_dp_kernel(const S* __restrict__ strips, const typename Op<SR>::T* __restric
         T a[4], xv[4];
         load_strip4(srow + e, a);
         load_x4<STAGE_X>(xsrc + e, xv);
-        part = O::add(part, O::mul(xv[0], a[0]));
-        part = O::add(part, O::mul(xv[1], a[1]));
-        part = O::add(part, O::mul(xv[2], a[2]));
-        part = O::add(part, O::mul(xv[3], a[3]));
+        part = mul_add4<SR>(part, xv, a);
       }
       acc = O::add(acc, part);
     }
-#pragma unroll
-    for (int m = 16; m > 0; m >>= 1) acc = O::add(acc, shfl_xor(acc, m));
+    acc = warp_reduce<SR>(acc);
     if (lane == 0) out[row0 + r] = acc;
   }
 }
 
-template <int SR, typename S>
-void launch(const void* strips, const void* x, void* out, int n_groups,
-            int rows_per_group, int kbn, int bn, int k, int chunk, int c0,
-            int c_blocks, bool stage_x, cudaStream_t stream) {
-  using T = typename Op<SR>::T;
-  const S* s = static_cast<const S*>(strips);
-  const T* xp = static_cast<const T*>(x);
-  T* o = static_cast<T*>(out);
-  if (stage_x) {
-    const size_t smem = static_cast<size_t>(kbn) * sizeof(T);
-    band_dp_kernel<SR, S, true><<<n_groups, kThreads, smem, stream>>>(
-        s, xp, o, rows_per_group, kbn, bn, k, kbn, c0, c_blocks);
-  } else {
-    band_dp_kernel<SR, S, false><<<n_groups, kThreads, 0, stream>>>(
-        s, xp, o, rows_per_group, kbn, bn, k, chunk, c0, c_blocks);
-  }
-}
+// the launch for one (semiring, strip type) instantiation, as dispatch
+// calls it
+struct BandLaunch {
+  const void* strips;
+  const void* x;
+  void* out;
+  int n_groups, rows_per_group, kbn, bn, k, chunk, c0, c_blocks;
+  bool stage_x;
+  cudaStream_t stream;
 
-template <int SR>
-int launch_float(int strip_dtype, const void* strips, const void* x, void* out,
-                 int n_groups, int rows_per_group, int kbn, int bn, int k,
-                 int chunk, int c0, int c_blocks, bool stage_x,
-                 cudaStream_t stream) {
-  if (strip_dtype == STRIP_F32) {
-    launch<SR, float>(strips, x, out, n_groups, rows_per_group, kbn, bn, k,
-                      chunk, c0, c_blocks, stage_x, stream);
-  } else if (strip_dtype == STRIP_BF16) {
-    launch<SR, __nv_bfloat16>(strips, x, out, n_groups, rows_per_group, kbn,
-                              bn, k, chunk, c0, c_blocks, stage_x, stream);
-  } else {
-    return cudaErrorInvalidValue;
+  template <int SR, typename S>
+  int run() const {
+    using T = typename Op<SR>::T;
+    const S* s = static_cast<const S*>(strips);
+    const T* xp = static_cast<const T*>(x);
+    T* o = static_cast<T*>(out);
+    if (stage_x) {
+      const size_t smem = static_cast<size_t>(kbn) * sizeof(T);
+      band_dp_kernel<SR, S, true><<<n_groups, kThreads, smem, stream>>>(
+          s, xp, o, rows_per_group, kbn, bn, k, kbn, c0, c_blocks);
+    } else {
+      band_dp_kernel<SR, S, false><<<n_groups, kThreads, 0, stream>>>(
+          s, xp, o, rows_per_group, kbn, bn, k, chunk, c0, c_blocks);
+    }
+    return cudaSuccess;
   }
-  return cudaSuccess;
-}
-
-template <int SR>
-int launch_int(int strip_dtype, const void* strips, const void* x, void* out,
-               int n_groups, int rows_per_group, int kbn, int bn, int k,
-               int chunk, int c0, int c_blocks, bool stage_x,
-               cudaStream_t stream) {
-  if (strip_dtype != STRIP_I32) return cudaErrorInvalidValue;
-  launch<SR, int>(strips, x, out, n_groups, rows_per_group, kbn, bn, k, chunk,
-                  c0, c_blocks, stage_x, stream);
-  return cudaSuccess;
-}
+};
 
 }  // namespace
 
@@ -274,35 +130,10 @@ int sh_band_dp(int device, const void* strips, const void* x, void* out,
   if (n_groups == 0) return cudaSuccess;
   int rc = cudaSetDevice(device);
   if (rc != cudaSuccess) return rc;
-  const int rows_per_group = gs * bm;
-  const int chunk = kc * bn;
-  const bool st = stage_x != 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (semiring) {
-    case PLUS_TIMES:
-      rc = launch_float<PLUS_TIMES>(strip_dtype, strips, x, out, n_groups, rows_per_group, kbn, bn, k, chunk, c0, c_blocks, st, s);
-      break;
-    case MIN_PLUS:
-      rc = launch_float<MIN_PLUS>(strip_dtype, strips, x, out, n_groups, rows_per_group, kbn, bn, k, chunk, c0, c_blocks, st, s);
-      break;
-    case MAX_MIN:
-      rc = launch_float<MAX_MIN>(strip_dtype, strips, x, out, n_groups, rows_per_group, kbn, bn, k, chunk, c0, c_blocks, st, s);
-      break;
-    case MAX_TIMES:
-      rc = launch_float<MAX_TIMES>(strip_dtype, strips, x, out, n_groups, rows_per_group, kbn, bn, k, chunk, c0, c_blocks, st, s);
-      break;
-    case OR_AND:
-      rc = launch_int<OR_AND>(strip_dtype, strips, x, out, n_groups, rows_per_group, kbn, bn, k, chunk, c0, c_blocks, st, s);
-      break;
-    case MAX_RIGHT:
-      rc = launch_int<MAX_RIGHT>(strip_dtype, strips, x, out, n_groups, rows_per_group, kbn, bn, k, chunk, c0, c_blocks, st, s);
-      break;
-    case MIN_RIGHT:
-      rc = launch_int<MIN_RIGHT>(strip_dtype, strips, x, out, n_groups, rows_per_group, kbn, bn, k, chunk, c0, c_blocks, st, s);
-      break;
-    default:
-      rc = cudaErrorInvalidValue;
-  }
+  const BandLaunch launch{strips, x, out, n_groups, gs * bm, kbn, bn, k,
+                          kc * bn, c0, c_blocks, stage_x != 0,
+                          static_cast<cudaStream_t>(stream)};
+  rc = dispatch(semiring, strip_dtype, launch);
   if (rc != cudaSuccess) return rc;
   return static_cast<int>(cudaGetLastError());
 }

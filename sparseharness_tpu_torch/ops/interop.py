@@ -11,8 +11,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sparseharness_tpu_torch.formats.sparse import round_up
+from sparseharness_tpu_torch.ops.bsr import BsrOperand, segments
 from sparseharness_tpu_torch.ops.bsr_band import BsrBandOperand
-from sparseharness_tpu_torch.ops.torch_ops import EllOperand
+from sparseharness_tpu_torch.ops.bsr_ell import BsrEllOperand
+from sparseharness_tpu_torch.ops.bsr_fused import BsrFusedOperand
+from sparseharness_tpu_torch.ops.dia import DiaOperand
+from sparseharness_tpu_torch.ops.torch_ops import CooOperand, DenseOperand, EllOperand
 from sparseharness_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -33,3 +38,46 @@ def ell_operand_from_numpy(cols: np.ndarray, vals: np.ndarray,
                            device: DeviceLike = None) -> EllOperand:
     device = resolve_device(device)
     return EllOperand(cols=_tensor(cols, device), vals=_tensor(vals, device))
+
+
+def bsr_ell_operand_from_numpy(tiles: np.ndarray, tile_cols: np.ndarray,
+                               device: DeviceLike = None) -> BsrEllOperand:
+    device = resolve_device(device)
+    return BsrEllOperand(tiles=_tensor(tiles, device),
+                         tile_cols=_tensor(tile_cols, device))
+
+
+def bsr_fused_operand_from_numpy(strips: np.ndarray, cols: np.ndarray,
+                                 device: DeviceLike = None) -> BsrFusedOperand:
+    device = resolve_device(device)
+    return BsrFusedOperand(strips=_tensor(strips, device), cols=_tensor(cols, device))
+
+
+def bsr_operand_from_numpy(tiles: np.ndarray, tile_rows: np.ndarray,
+                           tile_cols: np.ndarray, row_start: np.ndarray,
+                           n_rows: int, device: DeviceLike = None) -> BsrOperand:
+    """The gen-1 operand, with its segment starts derived from the
+    slab-local tile_rows and the slab height that n_rows gives."""
+    device = resolve_device(device)
+    n_slabs, _, bm, _ = tiles.shape
+    rows = _tensor(tile_rows, device)
+    rps = -(-(round_up(max(n_rows, 1), bm) // bm) // n_slabs)
+    return BsrOperand(tiles=_tensor(tiles, device), tile_rows=rows,
+                      tile_cols=_tensor(tile_cols, device),
+                      row_start=_tensor(row_start, device),
+                      seg=segments(rows, rps))
+
+
+def coo_seg_operand_from_numpy(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
+                               device: DeviceLike = None) -> CooOperand:
+    device = resolve_device(device)
+    return CooOperand(*(_tensor(a, device) for a in (rows, cols, vals)))
+
+
+def dense_operand_from_numpy(mat: np.ndarray, device: DeviceLike = None) -> DenseOperand:
+    return DenseOperand(_tensor(mat, resolve_device(device)))
+
+
+def dia_operand_from_numpy(vals: np.ndarray, offsets, device: DeviceLike = None) -> DiaOperand:
+    return DiaOperand(_tensor(vals, resolve_device(device)),
+                      tuple(int(o) for o in offsets))

@@ -13,7 +13,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from sparseharness_tpu_torch.formats.sparse import COO
-from sparseharness_tpu_torch.ops import bsr_band, torch_ops
+from sparseharness_tpu_torch.ops import bsr, bsr_band, bsr_ell, bsr_fused, dia, torch_ops
 from sparseharness_tpu_torch.semiring import Semiring
 from sparseharness_tpu_torch.utils.device import DeviceLike
 
@@ -64,9 +64,12 @@ def get_variant(name: str) -> KernelVariant:
 
 
 #: structure-aware fallback chain for variant="auto": the streaming band
-#: kernel when the window is affine, ELL as the universal fallback. It
-#: holds the ported variants only and grows as the port does.
-AUTO_CHAIN = ("bsr_band", "ell")
+#: kernel when the window is affine, the fused gather kernel when the
+#: structure blocks well and x fits the TPU's VMEM cap, the pre-gathered
+#: strips otherwise, ELL as the universal fallback. It is the JAX chain
+#: without sell2, which comes between bsr_fused and bsr_ell there and is
+#: not ported yet.
+AUTO_CHAIN = ("bsr_band", "bsr_fused", "bsr_ell", "ell")
 
 
 def build_operand(coo: COO, sr: Semiring, variant: str = "ell",
@@ -128,4 +131,58 @@ register_variant(KernelVariant(
     description="Block-banded CUDA kernel: affine x windows (no gather), "
                 "x staged in shared memory or streamed; pure strip "
                 "streaming for banded/stencil structure",
+))
+
+register_variant(KernelVariant(
+    name="coo_seg",
+    build=lambda coo, sr, g, device: torch_ops.build_coo_seg(coo, sr, device=device),
+    dp=lambda op, x, sr, *, n_rows: torch_ops.dp_coo_seg(op, x, sr, num_rows=n_rows),
+    description="Row-sorted segmented ⊕ over COO in plain torch; no padding "
+                "blow-up on power-law rows",
+))
+
+register_variant(KernelVariant(
+    name="dense",
+    build=lambda coo, sr, g, device: torch_ops.build_dense(
+        coo, sr, row_multiple=g.block_m, col_multiple=g.block_n, device=device),
+    dp=lambda op, x, sr, *, n_rows: torch_ops.dp_dense(op, x, sr),
+    description="Densified operand in plain torch (a gemv for plus_times); "
+                "roofline foil",
+))
+
+register_variant(KernelVariant(
+    name="dia",
+    build=lambda coo, sr, g, device: dia.build_dia(coo, sr, device=device),
+    dp=dia.dp_dia,
+    description="Diagonal layout in plain torch: shifted slices of x, no "
+                "gather; auto routes banded structure to bsr_band instead",
+))
+
+register_variant(KernelVariant(
+    name="bsr_fused",
+    build=lambda coo, sr, g, device: bsr_fused.build_bsr_fused(
+        coo, sr, bm=g.block_m, bn=g.block_n, value_dtype=g.value_dtype,
+        device=device),
+    dp=bsr_fused.dp_bsr_fused,
+    description="Blocked CUDA strip kernel with the x block gather in the "
+                "kernel; the strips are the only large stream",
+))
+
+register_variant(KernelVariant(
+    name="bsr_ell",
+    build=lambda coo, sr, g, device: bsr_ell.build_bsr_ell(
+        coo, sr, bm=g.block_m, bn=g.block_n, value_dtype=g.value_dtype,
+        device=device),
+    dp=bsr_ell.dp_bsr_ell,
+    description="ELL-of-tiles strips over x strips gathered before the CUDA "
+                "strip kernel",
+))
+
+register_variant(KernelVariant(
+    name="bsr_pallas",
+    build=lambda coo, sr, g, device: bsr.build_bsr(
+        coo, sr, bm=g.block_m, bn=g.block_n, device=device),
+    dp=bsr.dp_bsr,
+    description="Gen-1 BSR: slabbed (bm, bn) tiles, a CUDA warp per row "
+                "walking its tile run; the JAX package's name kept",
 ))

@@ -28,6 +28,8 @@ from sparseharness_tpu_torch.semiring import PLUS_TIMES
 CASES = {
     "band": ("bsr_band", lambda m: m.banded_coo(1500, 20, seed=3)),
     "graph": ("ell", lambda m: m.random_graph_coo(200, 3.0, seed=1)),
+    # auto resolves bsr_fused in both packages
+    "blocks_auto": ("auto", lambda m: m.block_random_coo(4096, 2, seed=5)),
 }
 
 
@@ -63,6 +65,20 @@ def test_apps_match_golds():
     np.testing.assert_array_equal(r.aux.numpy(), bfs_levels_gold(coo, 3))
     r = ta.pagerank(coo, variant="bsr_band", device="cpu")
     assert np.abs(r.x.numpy() - pagerank_gold(coo)).max() < 1e-5
+
+
+@pytest.mark.parametrize("variant", ["auto", "bsr_ell", "bsr_pallas"])
+def test_make_spmv_problem_names_the_variant(variant):
+    """auto resolves past the band to bsr_fused; the problem carries the
+    resolved name, and every blocked variant gates CORRECT on the CPU."""
+    coo = tf.block_random_coo(2048, 2, seed=5)
+    prob = ta.make_spmv_problem(coo, PLUS_TIMES, variant, seed=4, device="cpu")
+    assert prob.variant == ("bsr_fused" if variant == "auto" else variant)
+    x = prob.x0.numpy()
+    gold = spmv_gold(coo, x, prob.y.numpy(), PLUS_TIMES)
+    res = benchmark_spmv(prob, gold=gold, config=BenchmarkConfig(trials=1, launches_per_trial=1),
+                         nnz=coo.nnz, gold_scale=spmv_abs_bound(coo, x))
+    assert res.correctness is Correctness.CORRECT
 
 
 def test_run_fixpoint_stop_rule_matches_jax():

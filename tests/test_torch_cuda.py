@@ -1,6 +1,8 @@
 """Kernel tests that need an NVIDIA GPU and nvcc (marker ``cuda``): the
-bsr_band kernel's staged and streamed paths against the plain version on
-the same CUDA tensors. They skip without a card; run them on one with
+bsr_band kernel's staged and streamed paths, the strip kernel of bsr_fused
+and bsr_ell, and the gen-1 tile kernel of bsr_pallas, against their plain
+versions on the same CUDA tensors, and spmv launching each kernel. They
+skip without a card; run them on one with
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
@@ -12,8 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from sparseharness_tpu_torch.formats import banded_coo, random_coo
-from sparseharness_tpu_torch.ops import LAUNCHES, bsr_band, spmv
+from sparseharness_tpu_torch.formats import banded_coo, block_random_coo, random_coo
+from sparseharness_tpu_torch.ops import LAUNCHES, bsr, bsr_band, bsr_ell, bsr_fused, spmv
 from sparseharness_tpu_torch.semiring import REGISTRY, PLUS_TIMES, get_semiring
 
 # (semiring, strip dtype): bf16 strips only for the float semirings
@@ -71,4 +73,83 @@ def test_spmv_launches_kernel(cuda):
     y = spmv(op, x, sr=PLUS_TIMES, variant="bsr_band", n_rows=coo.shape[0])
     torch.cuda.synchronize()
     assert LAUNCHES["staged"] == before["staged"] + 1
+    assert y.is_cuda and y.shape == (coo.shape[0],)
+
+
+def _assert_kernel_matches(name, got, ref, bound):
+    """Bit-exact, or plus_times within 1e-5 · max(1, |plain|, Σ|a·x|)."""
+    if name == "plus_times":
+        tol = 1e-5 * torch.clamp(torch.maximum(ref.abs(), bound), min=1.0)
+        assert bool(((got - ref).abs() <= tol).all())
+    else:
+        assert torch.equal(got, ref)
+
+
+def _one_wide_row():
+    """K = 66 tiles in one block-row: bsr_fused takes two slabs."""
+    from sparseharness_tpu_torch.formats import coo_from_arrays
+
+    cols = np.arange(0, 600 * 14, 14, dtype=np.int32)
+    return coo_from_arrays(np.zeros(600, np.int32), cols,
+                           np.linspace(0.1, 1.0, 600).astype(np.float32), (600, 8400))
+
+
+BLOCKED = (lambda: random_coo(1138, 1138, 4054, seed=0),
+           lambda: block_random_coo(4096, 2, seed=5), _one_wide_row)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,value_dtype", CASES)
+def test_strip_kernel_matches_plain(name, value_dtype, cuda):
+    """bsr_fused (x gathered in the kernel) and bsr_ell (x strips gathered
+    before it) against the plain strip dp."""
+    sr = get_semiring(name)
+    for make in BLOCKED:
+        coo = make()
+        op = bsr_fused.build_bsr_fused(coo, sr, value_dtype=value_dtype, device=cuda)
+        strips, cols, k, bn = bsr_fused._flat(op)
+        x2d = bsr.pad_x2d(_x(sr, coo.shape[1], seed=5).to(cuda), bn, sr)
+        xt = bsr_ell.gather_x_strips(x2d, cols)
+        ref = bsr_ell.strip_dp_plain(strips, xt, sr)
+        bound = None
+        if name == "plus_times":
+            bound = bsr_ell.strip_dp_plain(strips.abs(), xt.abs(), PLUS_TIMES)
+        for got in (bsr_ell.strip_dp_cuda(strips, x2d, sr, k=k, cols=cols),
+                    bsr_ell.strip_dp_cuda(strips, xt, sr, k=k)):
+            torch.cuda.synchronize()
+            _assert_kernel_matches(name, got, ref, bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiles_per_slab", [bsr.DEFAULT_TILES_PER_SLAB, 20])
+@pytest.mark.parametrize("name", sorted(REGISTRY))
+def test_tile_kernel_matches_plain(name, tiles_per_slab, cuda):
+    sr = get_semiring(name)
+    for make in BLOCKED:
+        coo = make()
+        op = bsr.build_bsr(coo, sr, tiles_per_slab=tiles_per_slab, device=cuda)
+        x2d = bsr.pad_x2d(_x(sr, coo.shape[1], seed=6).to(cuda), op.tiles.shape[3], sr)
+        got = bsr.tile_dp_cuda(op.tiles, x2d, op.tile_cols, op.seg, sr)
+        torch.cuda.synchronize()
+        ref = bsr.tile_dp_plain(op.tiles, x2d, op.tile_cols, op.seg, sr)
+        bound = None
+        if name == "plus_times":
+            bound = bsr.tile_dp_plain(op.tiles.abs(), x2d.abs(), op.tile_cols, op.seg,
+                                      PLUS_TIMES)
+        _assert_kernel_matches(name, got, ref, bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["bsr_fused", "bsr_ell", "bsr_pallas"])
+def test_spmv_launches_blocked_kernel(variant, cuda):
+    from sparseharness_tpu_torch.ops import build_operand
+
+    coo = block_random_coo(2048, 2, seed=1)
+    op = build_operand(coo, PLUS_TIMES, variant, device=cuda)
+    x = _x(PLUS_TIMES, coo.shape[1], seed=4).to(cuda)
+    before = dict(LAUNCHES)
+    y = spmv(op, x, sr=PLUS_TIMES, variant=variant, n_rows=coo.shape[0])
+    torch.cuda.synchronize()
+    assert LAUNCHES[variant] == before[variant] + 1
+    assert sum(LAUNCHES.values()) == sum(before.values()) + 1
     assert y.is_cuda and y.shape == (coo.shape[0],)

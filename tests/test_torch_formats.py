@@ -25,7 +25,12 @@ def _same_coo(a, b):
     lambda m: m.random_graph_coo(200, 3.0, seed=1),
     lambda m: m.banded_coo(1200, 130, seed=12),
     lambda m: m.banded_coo(777, 5, dtype=np.float64, seed=9),
-], ids=["random", "graph", "band", "band_f64"])
+    lambda m: m.block_random_coo(1000, 3, seed=2),
+    lambda m: m.power_law_coo(500, 3000, seed=3),
+    lambda m: m.chained_power_law_coo(1000, 7, seed=4),
+    lambda m: m.chained_power_law_coo(5, 4, seed=4),
+], ids=["random", "graph", "band", "band_f64", "blocks", "power_law", "chained",
+        "chained_tiny"])
 def test_generators_match_jax(make):
     _same_coo(make(tf), make(jf))
 
@@ -81,6 +86,19 @@ def test_fold_duplicates_matches_jax(add):
 def test_fold_duplicates_keeps_sorted_unique_input():
     coo = tf.banded_coo(300, 4, seed=2)
     assert fold_duplicates(coo, np.minimum) is coo
+
+
+@pytest.mark.parametrize("zero", [0.0, 3.5])
+def test_bsr_from_coo_matches_jax(zero):
+    from sparseharness_tpu.formats.sparse import bsr_from_coo as jax_bsr_from_coo
+
+    for make in (lambda m: m.random_coo(300, 500, 2000, seed=4),
+                 lambda m: m.coo_from_arrays([], [], np.zeros(0, np.float32), (20, 30))):
+        a = tf.bsr_from_coo(make(tf), 8, 128, zero=zero)
+        b = jax_bsr_from_coo(make(jf), 8, 128, zero=zero)
+        for name in ("tiles", "tile_rows", "tile_cols", "block_ptr"):
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name), err_msg=name)
+        assert a.padded_shape == b.padded_shape and a.fill_zero == b.fill_zero
 
 
 def test_to_ell_and_pagerank_normalise_match_jax():

@@ -1,6 +1,6 @@
 """The port's spmv (variant dp, then the α/β fold) against the JAX
-package's spmv on the same seeded inputs, for the ell and bsr_band
-variants; plus the fold's saturation clamp and the auto chain."""
+package's spmv on the same seeded inputs, for every ported variant; plus
+the fold's saturation clamp and the auto chain."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -57,7 +57,12 @@ def _assert_match(sr, port, ref, coo, x):
         np.testing.assert_array_equal(port, ref)
 
 
-@pytest.mark.parametrize("variant", ["ell", "bsr_band"])
+# bsr_fused runs its Pallas kernel in interpret mode on the JAX side, which
+# takes seconds a call; it has its own cases below
+VARIANTS = ["ell", "bsr_band", "bsr_ell", "bsr_pallas", "coo_seg", "dense", "dia"]
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("name", NAMES)
 def test_spmv_matches_jax(name, variant):
     sr, jsr = get_semiring(name), jax_semiring(name)
@@ -80,6 +85,24 @@ def test_spmv_matches_jax(name, variant):
         _assert_match(sr, port, ref, coo_t, x)
 
 
+@pytest.mark.parametrize("name", ["plus_times", "min_plus", "or_and", "max_right"])
+def test_bsr_fused_spmv_matches_jax(name):
+    """The α/β fold over bsr_fused, with non-static α and β."""
+    sr, jsr = get_semiring(name), jax_semiring(name)
+    coo_t, coo_j, x, y = _inputs(sr, lambda m: m.banded_coo(700, 20, seed=5))
+    op = build_operand(coo_t, sr, "bsr_fused", device="cpu")
+    jop = jax_build(coo_j, jsr, "bsr_fused")
+    a, b = _ALPHA_BETA[name]
+    dt = sr.np_dtype
+    port = spmv(op, torch.from_numpy(x), torch.from_numpy(y), sr=sr, variant="bsr_fused",
+                n_rows=coo_t.shape[0], alpha=torch.tensor(np.asarray(a, dt)),
+                beta=torch.tensor(np.asarray(b, dt)))
+    ref = jax_spmv(jop, jnp.asarray(x), jnp.asarray(y), sr=jsr, variant="bsr_fused",
+                   n_rows=coo_t.shape[0], alpha=jnp.asarray(np.asarray(a, dt)),
+                   beta=jnp.asarray(np.asarray(b, dt)))
+    _assert_match(sr, port, ref, coo_t, x)
+
+
 def test_ell_operand_from_jax_arrays_matches_port_build():
     sr, jsr = get_semiring("max_right"), jax_semiring("max_right")
     coo_t, coo_j, _, _ = _inputs(sr, lambda m: m.random_graph_coo(200, 3.0, seed=1))
@@ -100,13 +123,13 @@ def test_fold_dp_clamps_min_plus_overflow():
     assert np.isfinite(port.numpy()).all()
 
 
-def test_auto_chain_picks_band_then_ell():
+def test_auto_chain_picks_band_then_fused():
     sr = get_semiring("plus_times")
-    assert AUTO_CHAIN == ("bsr_band", "ell")
+    assert AUTO_CHAIN == ("bsr_band", "bsr_fused", "bsr_ell", "ell")
     name, _ = build_operand_auto(tf.banded_coo(600, 10, seed=1), sr, device="cpu")
     assert name == "bsr_band"
     name, _ = build_operand_auto(tf.random_coo(2048, 2048, 3000, seed=1), sr,
                                  device="cpu")
-    assert name == "ell"
+    assert name == "bsr_fused"
     with pytest.raises(KeyError):
-        get_variant("bsr_fused")  # not ported yet
+        get_variant("sell2")  # not ported yet
