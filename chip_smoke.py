@@ -44,7 +44,26 @@ result. Phases:
    random_coo(1138, 1138, 4054, seed=0), bsr_band and dia on
    banded_coo(1138, 8, seed=0);
 9. kernel timing at the blocked shape: each blocked kernel, its plain
-   version, torch.mv on a CSR tensor of the same matrix, and the bound.
+   version, torch.mv on a CSR tensor of the same matrix, and the bound;
+10. the sell2 kernel against its plain version: all seven semirings and
+   value types on the layout cases of tests/test_sell2.py (a hub row split
+   into pieces, virtual chunks, two slabs, three chunks, a power-law graph
+   with bucket layouts sharing a row0, empty rows, one entry per row), bit
+   for bit except plus_times (held within the tolerance above, and to the
+   same bits on a second run), then at the ragged bench width plus_times
+   in f32 and bf16, min_plus and or_and;
+11. the ragged main path, with the launch counters reset just before and
+   read just after: bench.py's ragged matrix, power_law_coo(500000,
+   2000000, alpha=1.5, seed=13) with 1,713,662 nnz, through
+   make_spmv_problem and benchmark_spmv with sell2, gold-gated in f32, bf16
+   and min_plus; then sssp, bfs, pagerank, connected_components and
+   widest_path with variant="auto", which must resolve sell2 (one sell2
+   launch per step), each certified;
+12. kernel timing at the ragged shape: the sell2 kernel in f32 and bf16
+   (the median of five windows, the host's enqueue time per call, and the
+   device time of each of its kernels from torch.profiler), its plain
+   version, torch.mv on a CSR tensor of the same matrix, the bound, and
+   the seconds of each build.
 
 Then the kernels line, the nvidia-smi line and, last, the ok line.
 """
@@ -69,6 +88,9 @@ F32_PEAK_OPS = 67e12  # H100 SXM float32 outside the tensor cores (data sheet)
 BLOCK_N = 131072   # bench.py's blocked candidate: 16,384 block-rows of 2 tiles
 BLOCK_SEED = 5
 BLOCKED = ("bsr_fused", "bsr_ell", "bsr_pallas")
+RAGGED_N = 500_000      # bench.py's ragged matrix: power_law_coo(500000,
+RAGGED_NNZ = 2_000_000  # 2000000, alpha=1.5, seed=13), 1,713,662 nnz
+RAGGED_SEED = 13
 SEMIRINGS = ("plus_times", "min_plus", "or_and", "max_min", "max_times",
              "max_right", "min_right")
 
@@ -114,6 +136,29 @@ def time_ms(torch, fn, n: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
+
+
+def time_windows(torch, fn, windows: int = 5, n: int = 20) -> dict:
+    """Milliseconds per call over ``windows`` runs of n back-to-back calls
+    (CUDA events), after two warm-up calls: the median window, every window,
+    and the host's median ms per call to enqueue them. When the enqueue
+    takes as long as a call, the calls are bound by the host."""
+    fn()
+    fn()
+    dev, host = [], []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        host.append((time.perf_counter() - t0) * 1e3 / n)
+        end.synchronize()
+        dev.append(start.elapsed_time(end) / n)
+    return {"ms": float(np.median(dev)), "ms_windows": dev,
+            "enqueue_ms": float(np.median(host))}
 
 
 def random_x(torch, sr, n: int, rng) -> "torch.Tensor":
@@ -631,13 +676,274 @@ def blocked_kernel_times(torch, coo) -> dict:
     return res
 
 
+def ragged_cases(torch):
+    """The layout cases of tests/test_sell2.py (see the module docstring)."""
+    from sparseharness_tpu_torch.formats import coo_from_arrays, power_law_coo, random_coo
+
+    rng = np.random.default_rng(5)
+    bg = random_coo(1200, 4000, 5000, seed=6)
+    hub = coo_from_arrays(np.r_[np.full(600, 7), bg.rows],
+                          np.r_[rng.choice(4000, 600, replace=False), bg.cols],
+                          np.r_[rng.uniform(0.1, 1.0, 600).astype(np.float32), bg.vals],
+                          (1200, 4000))
+    rng = np.random.default_rng(9)
+    ch = np.repeat(np.arange(60), 64)
+    cols = (ch * 16384 + np.repeat(np.tile(np.arange(4), 60), 16) * 128
+            + rng.integers(0, 128, ch.size))
+    light = coo_from_arrays(rng.integers(0, 4096, ch.size), cols,
+                            rng.uniform(0.1, 1.0, ch.size).astype(np.float32),
+                            (4096, 60 * 16384))
+    rows = np.arange(2000)
+    return [hub, light, random_coo(32768 + 3000, 900, 40_000, seed=1),
+            random_coo(700, 2 * 16384 + 5000, 30_000, seed=2),
+            power_law_coo(20000, 60000, seed=4),
+            coo_from_arrays([0, 1, 2], [10, 20, 30], [1.0, 2.0, 3.0], (5000, 5000)),
+            coo_from_arrays(rows, (rows * 37) % 2000,
+                            np.linspace(0.1, 1.0, 2000).astype(np.float32), (2000, 2000))]
+
+
+def sell2_vs_plain(torch, coo, cases, errs) -> int:
+    """The sell2 kernel against its plain version on one matrix for
+    (semiring, value type) cases: bit for bit, except plus_times within
+    PT_DELTA · max(1, |plain|, Σ|a·x|), and plus_times' second run to the
+    same bits. The worst plus_times error goes into ``errs``."""
+    from sparseharness_tpu_torch.ops import sell2
+    from sparseharness_tpu_torch.semiring import PLUS_TIMES, get_semiring
+
+    rng = np.random.default_rng(10)
+    checked = 0
+    for name, vd in cases:
+        sr = get_semiring(name)
+        m = coo.with_values(coo.vals != 0) if sr.dtype == torch.bool else coo
+        op = sell2.build_sell2(m, sr, value_dtype=vd, device="cuda")
+        x = random_x(torch, sr, m.shape[1], rng)
+        got = sell2.sell2_dp_cuda(op, x, sr)
+        ref = sell2.dp_sell2_plain(op, x, sr, n_rows=m.shape[0])
+        bound = None
+        if name == "plus_times":
+            again = sell2.sell2_dp_cuda(op, x, sr)
+            torch.cuda.synchronize()
+            if not torch.equal(again.view(torch.int32), got.view(torch.int32)):
+                raise AssertionError(f"sell2 {name}/{vd}: two runs differ")
+            if not torch.equal(got, ref):
+                aop = sell2.build_sell2(m.with_values(np.abs(m.vals)), sr, value_dtype=vd,
+                                        device="cuda")
+                bound = sell2.dp_sell2_plain(aop, x.abs(), PLUS_TIMES, n_rows=m.shape[0])
+                del aop
+        errs["sell2"] = max(errs["sell2"], check_kernel(
+            torch, f"sell2 {name}/{vd}", got, ref, bound))
+        checked += 1
+        del op
+    return checked
+
+
+def ragged_main_path(torch, coo, out) -> None:
+    """bench.py's ragged matrix through make_spmv_problem and
+    benchmark_spmv with sell2, gold-gated."""
+    from sparseharness_tpu_torch.algorithms import make_spmv_problem
+    from sparseharness_tpu_torch.gold import Correctness, spmv_abs_bound, spmv_gold
+    from sparseharness_tpu_torch.harness import (
+        BenchmarkConfig, benchmark_spmv, device_hbm_bandwidth, variant_bytes,
+    )
+    from sparseharness_tpu_torch.ops import Geometry
+    from sparseharness_tpu_torch.semiring import MIN_PLUS, PLUS_TIMES
+
+    bw = device_hbm_bandwidth(torch.cuda.get_device_name(0))
+    config = BenchmarkConfig(trials=5, launches_per_trial=20)
+    for sr, vd in ((PLUS_TIMES, "float32"), (PLUS_TIMES, "bfloat16"),
+                   (MIN_PLUS, "float32")):
+        geom = Geometry(8, 128, vd)
+        t0 = time.perf_counter()
+        prob = make_spmv_problem(coo, sr, "sell2", geom, seed=3)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        gold_coo = coo
+        if vd == "bfloat16":
+            vals = torch.from_numpy(coo.vals).to(torch.bfloat16).float().numpy()
+            gold_coo = coo.with_values(vals)
+        x_np = prob.x0.cpu().numpy()
+        gold = spmv_gold(gold_coo, x_np, prob.y.cpu().numpy(), sr)
+        scale = spmv_abs_bound(gold_coo, x_np) if sr is PLUS_TIMES else None
+        res = benchmark_spmv(prob, gold=gold, config=config, geometry=geom,
+                             matrix_name=f"zipf{RAGGED_N}", nnz=coo.nnz, gold_scale=scale)
+        if res.correctness is not Correctness.CORRECT:
+            raise AssertionError(f"sell2@{geom} {sr.name}: {res.correctness}")
+        n_bytes = variant_bytes("sell2", prob.operand, prob.x0.numel() * 4,
+                                coo.shape[0] * 4)
+        out.append({
+            "variant": "sell2", "semiring": sr.name, "geometry": str(geom),
+            "correctness": res.correctness.value, "build_seconds": build_s,
+            "median_ms": res.median_ns * 1e-6, "best_ms": res.best_ns * 1e-6,
+            "gnnz_per_s": res.gnnz_per_s, "bytes_per_s": n_bytes / (res.median_ns * 1e-9),
+            "bound_ms": n_bytes / bw * 1e3, "roofline_frac": res.roofline_frac,
+        })
+        del prob
+
+
+def ragged_fixpoints(torch, coo, out) -> None:
+    """sssp, bfs, pagerank, connected_components and widest_path with
+    variant="auto" on the ragged matrix. auto must resolve sell2: each step
+    launches it once. Certificates, each against the plain version on an
+    operand built for the check: sssp's x is tight (x[0] = 0, x ≥ 0 and
+    A⊗x = x off the root); bfs levels and component labels equal the NumPy
+    golds; pagerank's x and Σx agree with the NumPy gold (dangling vertices
+    leak mass, so Σx < 1; the residual |A·x + t − x| is reported);
+    widest_path's x is a fixpoint, max(x, A⊗x) = x, with the root at
+    FLT_MAX."""
+    from sparseharness_tpu_torch.algorithms import (
+        bfs, connected_components, pagerank, sssp, widest_path,
+    )
+    from sparseharness_tpu_torch.formats import pagerank_normalise
+    from sparseharness_tpu_torch.gold import (
+        bfs_levels_gold, connected_components_gold, pagerank_gold,
+    )
+    from sparseharness_tpu_torch.ops import LAUNCHES, build_operand, dp_sell2_plain, fold_dp
+    from sparseharness_tpu_torch.semiring import MAX_MIN, MIN_PLUS, PLUS_TIMES
+
+    n = coo.shape[0]
+
+    def plain_spmv(m, x, sr):
+        op = build_operand(m, sr, "sell2")
+        return fold_dp(dp_sell2_plain(op, x, sr, n_rows=n)[:n], None, sr, None, None)
+
+    def run(app, *args, **kw):
+        before = LAUNCHES["sell2"]
+        t0 = time.perf_counter()
+        r = app(coo, *args, variant="auto", **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launched = LAUNCHES["sell2"] - before
+        if launched != r.iterations:
+            raise AssertionError(f"{app.__name__}: {launched} sell2 launches for "
+                                 f"{r.iterations} steps: auto did not resolve sell2")
+        return r, dt
+
+    def record(app, r, dt, certificate, cert, **extra):
+        out.append({"app": app, "variant": "auto -> sell2", "iterations": r.iterations,
+                    "converged": r.converged, "seconds": dt, "certificate": certificate,
+                    "certified": cert, **extra})
+        if not cert:
+            raise AssertionError(f"ragged {app} certificate failed")
+
+    r, dt = run(sssp, 0)
+    ax = plain_spmv(coo, r.x, MIN_PLUS)
+    record("sssp", r, dt, "x[0] == 0, x >= 0 and A⊗x == x on rows != 0",
+           bool(r.converged and float(r.x[0]) == 0.0 and bool((r.x >= 0).all())
+                and torch.equal(ax[1:], r.x[1:])),
+           reached=int((r.x < 3e38).sum()))
+    del ax
+
+    r, dt = run(bfs, 0)
+    want = bfs_levels_gold(coo, 0)
+    record("bfs", r, dt, "levels == bfs_levels_gold",
+           bool(r.converged and np.array_equal(r.aux.cpu().numpy(), want)),
+           levels=int(want.max()), reached=int((want >= 0).sum()))
+
+    delta, damping = 1e-6, 0.85
+    r, dt = run(pagerank, damping, delta=delta)
+    teleport = np.float32((1.0 - damping) / n)
+    resid = float((plain_spmv(pagerank_normalise(coo, damping), r.x, PLUS_TIMES)
+                   + teleport - r.x).abs().max())
+    total = float(r.x.double().sum())
+    t0 = time.perf_counter()
+    want = pagerank_gold(coo, damping, tol=delta)
+    gold_s = time.perf_counter() - t0
+    err = float(np.abs(r.x.cpu().numpy() - want).max())
+    record("pagerank", r, dt, "|x − pagerank_gold| < 1e-5 and Σx == Σgold within 1e-4",
+           bool(r.converged and err < 1e-5 and abs(total - float(want.sum(dtype=np.float64)))
+                < 1e-4),
+           residual=resid, sum=total, max_abs_err_vs_gold=err, gold_seconds=gold_s)
+
+    r, dt = run(connected_components)
+    want = connected_components_gold(coo)
+    record("connected_components", r, dt, "labels == connected_components_gold",
+           bool(r.converged and np.array_equal(r.x.cpu().numpy(), want)),
+           components=int(np.unique(want).size))
+
+    r, dt = run(widest_path, 0)
+    ax = plain_spmv(coo, r.x, MAX_MIN)
+    flt_max = float(np.finfo(np.float32).max)
+    record("widest_path", r, dt, "max(x, A⊗x) == x and x[0] == FLT_MAX",
+           bool(r.converged and float(r.x[0]) == flt_max
+                and torch.equal(torch.maximum(r.x, ax), r.x)),
+           reached=int((r.x > -flt_max).sum()))
+
+
+def ragged_kernel_times(torch, coo) -> dict:
+    """The sell2 kernel's ms at the ragged shape (f32 and bf16), its plain
+    version's ms, the bound, the seconds of each build and the library
+    yardstick's ms. The bound counts the panel stream, piece_owner and
+    virt_blocks, x and the output once each; the run table the kernel
+    derives from the stream is reported beside it but not counted."""
+    from sparseharness_tpu_torch.harness import device_hbm_bandwidth
+    from sparseharness_tpu_torch.ops import sell2
+    from sparseharness_tpu_torch.semiring import PLUS_TIMES
+
+    bw = device_hbm_bandwidth(torch.cuda.get_device_name(0))
+    x = random_x(torch, PLUS_TIMES, coo.shape[1], np.random.default_rng(13))
+    res = {}
+    for vd in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        op = sell2.build_sell2(coo, PLUS_TIMES, value_dtype=vd, device="cuda")
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        stream = [t for s in op.slabs if s is not None for t in s.values()]
+        extra = [t for t in (op.piece_owner, op.virt_blocks) if t is not None]
+        plan = op.plan
+        n_slots = sum(s["vals"].numel() for s in op.slabs if s is not None)
+        out_rows = op.base_pad if op.piece_owner is not None else plan.n_out
+        entry = bound(tensor_bytes(*stream, *extra) + x.numel() * 4 + out_rows * 4,
+                      2 * n_slots, bw)
+        entry.update(
+            build_seconds=build_s, panels=plan.n_panels, layouts=len(op.layouts),
+            runs=plan.n_runs, slots=n_slots, pieces=0 if op.piece_owner is None
+            else int(op.piece_owner.numel()),
+            virtual_chunks=0 if op.virt_blocks is None else int(op.virt_blocks.shape[0]),
+            stream_bytes=tensor_bytes(*stream),
+            plan_bytes=tensor_bytes(*(getattr(plan, f.name) for f in dataclasses.fields(plan)
+                                      if isinstance(getattr(plan, f.name), torch.Tensor))),
+            **time_windows(torch, lambda: sell2.sell2_dp_cuda(op, x, PLUS_TIMES)),
+            plain_ms=time_ms(torch, lambda: sell2.dp_sell2_plain(
+                op, x, PLUS_TIMES, n_rows=coo.shape[0]), 3))
+        entry["stages_ms"] = stage_ms(torch, lambda: sell2.sell2_dp_cuda(op, x, PLUS_TIMES))
+        res[vd] = entry
+        del op
+    csr = csr_of(torch, coo)
+    res["library_ms"] = time_ms(torch, lambda: torch.mv(csr, x), 20)
+    del csr
+    return res
+
+
+def stage_ms(torch, fn, n: int = 20) -> dict:
+    """Device ms per call of each CUDA kernel that ``fn`` launches, by
+    kernel name, from torch.profiler over n calls; empty when the profiler
+    records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
+        if us and "sell2" in evt.key:
+            name = re.search(r"sell2_\w+?_kernel", evt.key)
+            out[name.group(0) if name else evt.key] = us / n / 1e3
+    return out
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    from sparseharness_tpu_torch.formats import banded_coo, block_random_coo, random_coo
+    from sparseharness_tpu_torch.formats import (
+        banded_coo, block_random_coo, power_law_coo, random_coo,
+    )
     from sparseharness_tpu_torch.ops import LAUNCHES, _build
 
     card = torch.cuda.get_device_name(0)
@@ -731,6 +1037,36 @@ def main() -> int:
         btimes = blocked_kernel_times(torch, bcoo)
         f.update(card=card, nvidia_smi=smi, times=btimes)
 
+    rcoo = power_law_coo(RAGGED_N, RAGGED_NNZ, alpha=1.5, seed=RAGGED_SEED)
+    rerrs = {"sell2": 0.0}
+    with Phase("sell2_kernel_vs_plain_small") as f:
+        f["comparisons"] = sum(sell2_vs_plain(torch, m, all_cases(torch), rerrs)
+                               for m in ragged_cases(torch))
+    with Phase("sell2_kernel_vs_plain_full") as f:
+        f["comparisons"] = sell2_vs_plain(
+            torch, rcoo, [("plus_times", "float32"), ("plus_times", "bfloat16"),
+                          ("min_plus", "float32"), ("or_and", "float32")], rerrs)
+        f.update(rows=rcoo.shape[0], nnz=rcoo.nnz, max_abs_err=rerrs)
+
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    rspmv_lines, rapp_lines = [], []
+    with Phase("main_path_ragged_spmv") as f:
+        ragged_main_path(torch, rcoo, rspmv_lines)
+        f.update(card=card, nvidia_smi=smi, runs=rspmv_lines)
+    with Phase("main_path_ragged_fixpoints") as f:
+        ragged_fixpoints(torch, rcoo, rapp_lines)
+        f.update(card=card, nvidia_smi=smi, runs=rapp_lines)
+    rlaunches = dict(LAUNCHES)
+    emit({"phase": "main_path_ragged_launches", "launches": rlaunches})
+    if rlaunches["sell2"] <= 0:
+        raise AssertionError("the sell2 kernel never launched on the ragged main path")
+    launches["sell2"] = rlaunches["sell2"]
+
+    with Phase("ragged_kernel_times") as f:
+        rtimes = ragged_kernel_times(torch, rcoo)
+        f.update(card=card, nvidia_smi=smi, times=rtimes)
+
     f32 = times["float32"]
     replaces = {"staged": "sparseharness_tpu/ops/pallas_bsr_band.py:180",
                 "streamed": "sparseharness_tpu/ops/pallas_bsr_band.py:259"}
@@ -762,6 +1098,15 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": btimes["library_ms"],
         })
+    t = rtimes["float32"]
+    kernels.append({
+        "name": "sell2", "route": "cuda",
+        "source": "sparseharness_tpu_torch/ops/csrc/sell2.cu",
+        "replaces": "sparseharness_tpu/ops/pallas_sell2.py:926",
+        "launches": launches["sell2"], "max_abs_err": rerrs["sell2"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": rtimes["library_ms"],
+    })
     emit({"kernels": kernels})
     print(nvidia_smi())
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -5,11 +5,13 @@ its module layout and names, for one NVIDIA GPU:
 
 - sparse formats, seeded generators and the MatrixMarket reader (``formats``)
 - semirings as torch ops (``semiring``)
-- SpMV variants: plain-torch ELL and the hand-written CUDA ``bsr_band``
-  kernel (``ops``, sources in ``ops/csrc``, built with nvcc at first use)
+- SpMV variants: plain-torch ``ell``, ``coo_seg``, ``dense`` and ``dia``,
+  and hand-written CUDA kernels for ``bsr_band``, the blocked variants and
+  ``sell2`` (``ops``, sources in ``ops/csrc``, built with nvcc at first use)
 - NumPy golds and correctness checks (``gold``)
 - the benchmark harness, timed with CUDA events (``harness``)
-- the fixpoint loop and the sssp / bfs / pagerank apps (``algorithms``)
+- the fixpoint loop and the sssp / bfs / pagerank / connected_components /
+  widest_path apps (``algorithms``)
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card they raise rather than fall back. It imports neither JAX
@@ -43,4 +45,10 @@ from sparseharness_tpu_torch.formats import (  # noqa: F401
     random_graph_coo,
     read_mtx,
 )
-from sparseharness_tpu_torch.algorithms import bfs, pagerank, sssp  # noqa: F401
+from sparseharness_tpu_torch.algorithms import (  # noqa: F401
+    bfs,
+    connected_components,
+    pagerank,
+    sssp,
+    widest_path,
+)

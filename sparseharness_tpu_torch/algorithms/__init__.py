@@ -7,8 +7,10 @@ from sparseharness_tpu_torch.algorithms.fixpoint import (  # noqa: F401
 from sparseharness_tpu_torch.algorithms.apps import (  # noqa: F401
     Problem,
     bfs,
+    connected_components,
     make_spmv_problem,
     pagerank,
     spmv_once,
     sssp,
+    widest_path,
 )

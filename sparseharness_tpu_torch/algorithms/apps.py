@@ -3,8 +3,8 @@
 Each app is a (semiring, initial vector, step, convergence) quadruple
 solved by the shared fixpoint loop. Algorithms use the monotone closure
 form ``x ← x ⊕ (A ⊗ x)``. Defaults follow the JAX package: variant "ell",
-a cap of n steps for sssp and n + 1 for bfs, delta 1e-6 and 1000 steps
-for pagerank.
+a cap of n steps for sssp and widest_path and n + 1 for bfs and
+connected_components, delta 1e-6 and 1000 steps for pagerank.
 """
 
 from __future__ import annotations
@@ -21,7 +21,9 @@ from sparseharness_tpu_torch.algorithms.fixpoint import (
 from sparseharness_tpu_torch.formats.preprocess import pagerank_normalise
 from sparseharness_tpu_torch.formats.sparse import COO
 from sparseharness_tpu_torch.ops import Geometry, build_operand, build_operand_auto, spmv
-from sparseharness_tpu_torch.semiring import MIN_PLUS, OR_AND, PLUS_TIMES, Semiring
+from sparseharness_tpu_torch.semiring import (
+    MAX_MIN, MIN_PLUS, MIN_RIGHT, OR_AND, PLUS_TIMES, Semiring,
+)
 from sparseharness_tpu_torch.utils.device import DeviceLike, resolve_device
 
 FLT_MAX = float(np.finfo(np.float32).max)
@@ -218,3 +220,70 @@ def pagerank(
 
     return _solve(step, x0, return_solver,
                   convergence=delta_converged(delta), max_iter=max_iter)
+
+
+def connected_components(
+    coo: COO,
+    variant: str = "ell",
+    geometry: Geometry = Geometry(),
+    max_iter: Optional[int] = None,
+    reorder: Optional[str] = None,
+    return_solver: bool = False,
+    *,
+    device: DeviceLike = None,
+) -> FixpointResult:
+    """Undirected connected components via min-label propagation over the
+    symmetrized pattern ((min, select) semiring): label[i] = the least
+    vertex id in i's component."""
+    _require_square(coo)
+    _require_no_reorder(reorder)
+    device = resolve_device(device)
+    sr = MIN_RIGHT
+    n = coo.shape[0]
+    rows = np.concatenate([coo.rows, coo.cols])
+    cols = np.concatenate([coo.cols, coo.rows])
+    sym = COO(rows.astype(np.int32), cols.astype(np.int32),
+              np.zeros(len(rows), np.int32), coo.shape)
+    variant, operand = _build(sym, sr, variant, geometry, device)
+    x0 = torch.arange(n, dtype=torch.int32, device=device)
+    limit = max_iter if max_iter is not None else n + 1
+
+    def step(x):
+        dp = spmv(operand, x, None, sr=sr, variant=variant, n_rows=n)
+        return torch.minimum(x, dp)
+
+    return _solve(step, x0, return_solver, convergence=exact_converged,
+                  max_iter=limit)
+
+
+def widest_path(
+    coo: COO,
+    root: int,
+    variant: str = "ell",
+    geometry: Geometry = Geometry(),
+    max_iter: Optional[int] = None,
+    reorder: Optional[str] = None,
+    return_solver: bool = False,
+    *,
+    device: DeviceLike = None,
+) -> FixpointResult:
+    """Bottleneck (widest) path widths from root via the (max, min)
+    semiring: width[i] = max over paths of the least edge weight; the root
+    is +FLT_MAX (the ⊗-identity), an unreached vertex −FLT_MAX."""
+    _require_square(coo)
+    _require_root(coo, root)
+    _require_no_reorder(reorder)
+    device = resolve_device(device)
+    sr = MAX_MIN
+    variant, operand = _build(coo, sr, variant, geometry, device)
+    n = coo.shape[0]
+    x0 = torch.full((n,), -FLT_MAX, dtype=torch.float32, device=device)
+    x0[root] = FLT_MAX
+    limit = max_iter if max_iter is not None else n
+
+    def step(x):
+        dp = spmv(operand, x, None, sr=sr, variant=variant, n_rows=n)
+        return torch.maximum(x, dp)
+
+    return _solve(step, x0, return_solver, convergence=exact_converged,
+                  max_iter=limit)

@@ -3,6 +3,8 @@ from sparseharness_tpu_torch.gold.check import Correctness, check_result  # noqa
 from sparseharness_tpu_torch.gold.algorithms import (  # noqa: F401
     bfs_levels_gold,
     bfs_reach_gold,
+    connected_components_gold,
     pagerank_gold,
     sssp_gold,
+    widest_path_gold,
 )

@@ -1,6 +1,7 @@
 """Classical NumPy golds for the fixpoint apps, independent of the semiring
 code path: Bellman-Ford for SSSP, frontier BFS, power iteration for
-PageRank.
+PageRank, min-label propagation for connected components and max-min
+propagation for widest paths.
 
 Edge convention: ``A[i, j] != 0`` is an edge j → i (so y = A ⊗ x
 propagates along edges), matching the SpMV dataflow.
@@ -87,3 +88,39 @@ def pagerank_gold(coo: COO, damping: float = 0.85, tol: float = 1e-6,
             break
         x = new
     return x.astype(np.float32)
+
+
+def connected_components_gold(coo: COO) -> np.ndarray:
+    """Undirected connected components via min-label propagation (edges
+    treated as bidirectional)."""
+    n = coo.shape[0]
+    label = np.arange(n, dtype=np.int64)
+    rows = np.concatenate([coo.rows, coo.cols])
+    cols = np.concatenate([coo.cols, coo.rows])
+    for _ in range(n):
+        upd = np.full(n, n + 1, dtype=np.int64)
+        np.minimum.at(upd, rows, label[cols])
+        new = np.minimum(label, upd)
+        if np.array_equal(new, label):
+            break
+        label = new
+    return label.astype(np.int32)
+
+
+def widest_path_gold(coo: COO, root: int) -> np.ndarray:
+    """Max-min (bottleneck) path widths from root; unreachable = -FLT_MAX,
+    root = +FLT_MAX (the ⊗-identity)."""
+    n = coo.shape[0]
+    lo = float(-np.finfo(np.float32).max)
+    hi = float(np.finfo(np.float32).max)
+    width = np.full(n, lo, dtype=np.float64)
+    width[root] = hi
+    for _ in range(n):
+        cand = np.minimum(width[coo.cols], coo.vals.astype(np.float64))
+        upd = np.full(n, lo, dtype=np.float64)
+        np.maximum.at(upd, coo.rows, cand)
+        new = np.maximum(width, upd)
+        if np.array_equal(new, width):
+            break
+        width = new
+    return width.astype(np.float32)

@@ -29,11 +29,19 @@ def device_hbm_bandwidth(device_name: str) -> float:
 
 
 def _operand_tensors(operand):
+    """Every tensor of an operand, walking into dataclasses, named tuples,
+    lists, tuples and dicts (sell2's per-slab dicts)."""
+    if isinstance(operand, torch.Tensor):
+        return [operand]
     if dataclasses.is_dataclass(operand):
-        fields = [getattr(operand, f.name) for f in dataclasses.fields(operand)]
+        parts = [getattr(operand, f.name) for f in dataclasses.fields(operand)]
+    elif isinstance(operand, dict):
+        parts = list(operand.values())
+    elif isinstance(operand, (list, tuple)):
+        parts = list(operand)
     else:
-        fields = list(operand)
-    return [t for t in fields if isinstance(t, torch.Tensor)]
+        return []
+    return [t for part in parts for t in _operand_tensors(part)]
 
 
 def variant_bytes(variant: str, operand, x_bytes: int, out_bytes: int) -> int:
@@ -44,7 +52,17 @@ def variant_bytes(variant: str, operand, x_bytes: int, out_bytes: int) -> int:
     once. ``ell`` gathers one x element per operand slot, with no reuse to
     count on, so it is charged that gather instead of one x pass;
     ``coo_seg`` one x element per nonzero plus the segment reduction's
-    read-modify-write of dp per nonzero."""
+    read-modify-write of dp per nonzero.
+
+    ``sell2``: every array of its slabs, ``piece_owner`` and
+    ``virt_blocks`` once, x once and the output once. The JAX package
+    charges three x passes, for the transposed x tiles that XLA writes
+    before its TPU kernel; the CUDA kernel reads x where it lies, so one
+    pass is the least traffic for the same work. The run table that the
+    CUDA kernel derives from the slabs is its own bookkeeping and not part
+    of that least traffic."""
+    if variant == "sell2":
+        operand = [operand.slabs, operand.piece_owner, operand.virt_blocks]
     tensors = _operand_tensors(operand)
     operand_bytes = sum(t.numel() * t.element_size() for t in tensors)
     itemsize = max((t.element_size() for t in tensors), default=4)

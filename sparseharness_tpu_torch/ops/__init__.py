@@ -47,3 +47,9 @@ from sparseharness_tpu_torch.ops.bsr_band import (  # noqa: F401
     dp_bsr_band,
     dp_bsr_band_plain,
 )
+from sparseharness_tpu_torch.ops.sell2 import (  # noqa: F401
+    Sell2Operand,
+    build_sell2,
+    dp_sell2,
+    dp_sell2_plain,
+)

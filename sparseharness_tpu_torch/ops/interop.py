@@ -17,6 +17,7 @@ from sparseharness_tpu_torch.ops.bsr_band import BsrBandOperand
 from sparseharness_tpu_torch.ops.bsr_ell import BsrEllOperand
 from sparseharness_tpu_torch.ops.bsr_fused import BsrFusedOperand
 from sparseharness_tpu_torch.ops.dia import DiaOperand
+from sparseharness_tpu_torch.ops.sell2 import Sell2Operand, _SlabLayout, assemble
 from sparseharness_tpu_torch.ops.torch_ops import CooOperand, DenseOperand, EllOperand
 from sparseharness_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -81,3 +82,22 @@ def dense_operand_from_numpy(mat: np.ndarray, device: DeviceLike = None) -> Dens
 def dia_operand_from_numpy(vals: np.ndarray, offsets, device: DeviceLike = None) -> DiaOperand:
     return DiaOperand(_tensor(vals, resolve_device(device)),
                       tuple(int(o) for o in offsets))
+
+
+def sell2_operand_from_numpy(slabs, layouts, n_chunks: int, n_rows: int, base_pad: int,
+                             piece_owner=None, virt_blocks=None,
+                             device: DeviceLike = None) -> Sell2Operand:
+    """The sell2 operand from its per-slab arrays (None for an empty slab,
+    else a mapping of chunk, wordA, wordB and vals) and layouts, as the JAX
+    package's Sell2Operand holds them. The kernel's run table is derived
+    from them on the device, as build_sell2 derives it."""
+    device = resolve_device(device)
+    dev_slabs = [None if s is None else {k: _tensor(s[k], device)
+                                         for k in ("chunk", "wordA", "wordB", "vals")}
+                 for s in slabs]
+    return assemble(
+        dev_slabs, tuple(_SlabLayout(*(int(v) if i < 4 else bool(v)
+                                       for i, v in enumerate(lay))) for lay in layouts),
+        n_chunks, n_rows, base_pad,
+        None if piece_owner is None else _tensor(piece_owner, device),
+        None if virt_blocks is None else _tensor(virt_blocks, device), device)

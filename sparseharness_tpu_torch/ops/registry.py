@@ -13,7 +13,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from sparseharness_tpu_torch.formats.sparse import COO
-from sparseharness_tpu_torch.ops import bsr, bsr_band, bsr_ell, bsr_fused, dia, torch_ops
+from sparseharness_tpu_torch.ops import bsr, bsr_band, bsr_ell, bsr_fused, dia, sell2, torch_ops
 from sparseharness_tpu_torch.semiring import Semiring
 from sparseharness_tpu_torch.utils.device import DeviceLike
 
@@ -63,13 +63,13 @@ def get_variant(name: str) -> KernelVariant:
         raise KeyError(f"unknown kernel variant {name!r}; known: {sorted(VARIANTS)}") from None
 
 
-#: structure-aware fallback chain for variant="auto": the streaming band
-#: kernel when the window is affine, the fused gather kernel when the
-#: structure blocks well and x fits the TPU's VMEM cap, the pre-gathered
-#: strips otherwise, ELL as the universal fallback. It is the JAX chain
-#: without sell2, which comes between bsr_fused and bsr_ell there and is
-#: not ported yet.
-AUTO_CHAIN = ("bsr_band", "bsr_fused", "bsr_ell", "ell")
+#: structure-aware fallback chain for variant="auto", the JAX package's:
+#: the streaming band kernel when the window is affine, the fused gather
+#: kernel when the structure blocks well and x fits the TPU's VMEM cap, the
+#: sell2 panel kernel for ragged and power-law rows (no cap on x), the
+#: pre-gathered strips when sell2's padding guard refuses, ELL as the
+#: universal fallback
+AUTO_CHAIN = ("bsr_band", "bsr_fused", "sell2", "bsr_ell", "ell")
 
 
 def build_operand(coo: COO, sr: Semiring, variant: str = "ell",
@@ -185,4 +185,15 @@ register_variant(KernelVariant(
     dp=bsr.dp_bsr,
     description="Gen-1 BSR: slabbed (bm, bn) tiles, a CUDA warp per row "
                 "walking its tile run; the JAX package's name kept",
+))
+
+register_variant(KernelVariant(
+    name="sell2",
+    build=lambda coo, sr, g, device: sell2.build_sell2(
+        coo, sr, value_dtype=g.value_dtype, device=device),
+    dp=sell2.dp_sell2,
+    description="Ragged/power-law panels: one CUDA launch over every "
+                "(slab, bucket) layout, products in shared memory, runs "
+                "reduced in the TPU butterfly's order, rows ⊕-reduced from "
+                "a run table; no cap on x",
 ))

@@ -1,0 +1,895 @@
+"""The ``sell2`` variant: ragged and power-law rows in (128, 128) panels.
+
+The operand is the JAX package's gen-6 panel stream, built by the same
+NumPy encoder (its native and threaded paths give the same arrays, so they
+are left out). Each row slab of up to ``SLAB_ROWS`` rows holds panels of
+128 stream sublanes × 128 lanes, one layout per (slab, bucket). Per panel,
+three int32 words and one value per slot:
+
+- ``chunk[p, 0:2]``: the two 16,384-column x chunks (or virtual chunks,
+  ids ≥ ``n_chunks``) the panel's sublanes read;
+- ``wordB[p·128 + s, l]``: lanesel (bits 0–6) and way (bit 29) of stream
+  slot (s, l); blk1 (15–21), blk0 (22–28) and the chunk select (30) of
+  sublane s in column s of every row; the lo route (lane 7–13, tile 14) of
+  row-class s, out slot l;
+- ``wordA[p·128 + l, j]``: the align sublanes a1 (0–6) and a2 (7–13) and
+  the capture levels cap1 (14–17) and cap2 (18–21) of row-class l,
+  aligned slot j; the hi route (lane 22–28, tile 29) of out slot 128 + j;
+- ``vals[p·128 + s, l]``: the matrix value of slot (s, l), 0̄ on padding.
+
+Slot (s, l) computes contrib = x ⊗ val with x taken from block
+``blk_way`` of chunk ``chunk[p, csel]`` at lane ``lanesel``. A run of
+row-class l is the ⊕ of contrib over an aligned block of ``2^(cap−1)``
+slots, in the pairwise order of the TPU kernel's XOR butterfly, and each
+out row (row0 + o·128 + l) ⊕-accumulates the run its route names, layout
+by layout and panel by panel. Rows longer than ``SPLIT_T`` are striped
+over overflow pieces past ``base_pad`` and ⊕-folded back after the sweep.
+
+On a CUDA tensor :func:`dp_sell2` launches the kernel pair of
+``csrc/sell2.cu`` over all panels of all layouts at once, driven by a run
+table (:class:`Sell2Plan`) that :func:`make_plan` decodes on the device
+from wordA and wordB. On a CPU tensor it runs :func:`dp_sell2_plain`, a
+literal torch replica of the TPU kernel's panel body.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from sparseharness_tpu_torch.formats.sparse import COO, fold_duplicates, round_up
+from sparseharness_tpu_torch.ops import _build
+from sparseharness_tpu_torch.ops.torch_ops import _SEGMENT_IDENTITY, _SEGMENT_REDUCE
+from sparseharness_tpu_torch.semiring import Semiring
+from sparseharness_tpu_torch.semiring.core import _carrier, _np_fold_for
+from sparseharness_tpu_torch.utils.device import DeviceLike, resolve_device
+
+LANES = 128
+#: columns per x chunk (one (128, 128) tile of x)
+CHUNK_COLS = LANES * LANES
+#: usable stream sublanes per panel (127; sublane 127 is the identity row)
+USABLE = LANES - 1
+#: rows per output slab: out tile is (SLAB_ROWS/128, 128), ≤ 256 sublanes
+SLAB_ROWS = 2 * LANES * LANES
+#: per-(panel, lane) aligned-slot budget (slots 254/255 stay identity)
+ALIGN_BUDGET = 254
+#: refuse layouts whose packed slots exceed this multiple of nnz
+PAD_BLOWUP_LIMIT = 24.0
+#: absolute operand size cap (12 B/slot): refuse > 2 GiB of packed stream
+SLOT_BYTE_CAP = 2 << 30
+#: rows longer than this split into col-striped overflow pieces
+SPLIT_T = 256
+#: two-shelf packer: max forward pushes before placing on fresh ground
+SHELF_MAX_PUSH = 64
+#: two-shelf packer: holes remembered per shelf for backfilling
+SHELF_MAX_HOLES = 64
+#: two-shelf packer: placements probed inside one hole before giving up
+SHELF_HOLE_TRIES = 32
+#: chunks whose per-slab 1-way sublane demand is at most this are
+#: virtualized: their blocks regroup into synthetic chunks so that light
+#: segments from many chunks share panels
+VIRT_DEMAND_T = 100
+
+
+class _SlabLayout(NamedTuple):
+    row0: int       # first row (multiple of SLAB_ROWS)
+    rows: int       # rows covered (multiple of 1024; out tile rows/128×128)
+    panels: int     # panels of this layout (0 = empty slab)
+    depth: int      # butterfly levels = log2(max run width)
+    two_tiles: bool  # any aligned offset > 126 (align tile 2 in play)
+    has_hi: bool    # any out slot ≥ 128 (hi route set in play)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sell2Plan:
+    """The kernel's run table, decoded on the device from the slabs.
+
+    Global panel g (layouts with panels concatenated in order) lies in
+    launched layout ``panel_layout[g]`` at index ``panel_local[g]``; its
+    runs are [panel_run_ptr[g], panel_run_ptr[g + 1]), each packed as
+    ``l | off << 7 | level << 15`` (row-class, aligned offset, capture
+    level). A run's value goes to ``run_dest[i]`` of the row-sorted run
+    list, whose row r holds [row_ptr[r], row_ptr[r + 1]) in (layout,
+    panel) order, ``run_layout`` naming each one's layout. Owner row r
+    folds overflow pieces [piece_ptr[r], piece_ptr[r + 1]). ``layout_ptrs``
+    holds the data pointers of each launched layout's chunk, wordA, wordB
+    and vals: the plan belongs to these tensors and is remade with them."""
+
+    layout_ptrs: torch.Tensor    # int64 (L, 4)
+    panel_layout: torch.Tensor   # int32 (G,)
+    panel_local: torch.Tensor    # int32 (G,)
+    panel_run_ptr: torch.Tensor  # int32 (G + 1,)
+    run_info: torch.Tensor       # int32 (R,)
+    run_dest: torch.Tensor       # int32 (R,)
+    run_layout: torch.Tensor     # int32 (R,), row-sorted
+    row_ptr: torch.Tensor        # int32 (n_out + 1,)
+    piece_ptr: torch.Tensor      # int32 (base_pad + 1,); empty without pieces
+    host_ptrs: tuple             # layout_ptrs as Python ints
+
+    @property
+    def n_panels(self) -> int:
+        return int(self.panel_layout.numel())
+
+    @property
+    def n_runs(self) -> int:
+        return int(self.run_info.numel())
+
+    @property
+    def n_out(self) -> int:
+        return int(self.row_ptr.numel()) - 1
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Sell2Operand:
+    """The JAX package's Sell2Operand on a device, with the kernel's plan.
+
+    ``slabs[i]`` is None for an empty slab, else a dict of ``chunk`` (P, 2)
+    int32, ``wordA`` and ``wordB`` (P·128, 128) int32 and ``vals``
+    (P·128, 128) in the store type. ``virt_blocks`` (n_virt, 128) int32
+    holds the global 128-column blocks of each virtual chunk."""
+
+    slabs: list
+    layouts: Tuple[_SlabLayout, ...]
+    n_chunks: int
+    n_rows: int
+    base_pad: int
+    piece_owner: Optional[torch.Tensor]
+    virt_blocks: Optional[torch.Tensor]
+    plan: Sell2Plan
+
+
+def _next_pow2(k: np.ndarray) -> np.ndarray:
+    """Elementwise run width: next pow2 ≥ k (singletons stay width 1 —
+    they capture before the butterfly, cap level 0)."""
+    k = np.maximum(k, 1)
+    return (1 << np.ceil(np.log2(k)).astype(np.int64)).astype(np.int64)
+
+
+def _grouped_exclusive_cumsum(vals: np.ndarray, group_key: np.ndarray):
+    """Exclusive cumsum of `vals` restarting at each change of (sorted)
+    `group_key`."""
+    cum = np.cumsum(vals) - vals
+    starts = np.r_[0, 1 + np.nonzero(np.diff(group_key))[0]]
+    start_of = np.zeros(len(vals), np.int64)
+    start_of[starts] = np.r_[cum[starts][:1], np.diff(cum[starts])]
+    return cum - np.cumsum(start_of)
+
+
+def _twoshelf_pack(cnt: np.ndarray):
+    """Two-shelf interval packing of one chunk-pool's block lane histograms
+    (cnt: n_blocks × 128) onto stream sublanes.
+
+    Each block gets one contiguous interval of ``demand = max_l cnt[b, l]``
+    sublanes on one of two shelves; a sublane is covered by at most one
+    interval per shelf, so it carries at most two block bindings. Blocks
+    are placed by demand descending at the shorter shelf's frontier, pushed
+    forward until their per-lane piles fit the free cells; skipped spans
+    are remembered as holes that later, smaller blocks backfill.
+
+    Returns ``(n_sub, bind0, bind1, way, flat_sub)``: per-sublane local
+    block ids per shelf (−1 = uncovered), per-block shelf bit, and the
+    per-entry sublane ids in (block, lane, pile-pos) order."""
+    demand = cnt.max(axis=1)
+    order = np.argsort(-demand, kind="stable")
+    order = order[demand[order] > 0]
+    cap = int(demand.sum()) + SHELF_MAX_PUSH + 1
+    occ = np.zeros((cap, LANES), bool)
+    bind = [np.full(cap, -1, np.int64), np.full(cap, -1, np.int64)]
+    way = np.zeros(cnt.shape[0], np.int8)
+    placements: list = []
+    frontier = [0, 0]
+    holes: List[List[Tuple[int, int]]] = [[], []]
+
+    def fits(o, d, h):
+        return bool(np.all(d - occ[o:o + d].sum(axis=0) >= h))
+
+    def place(bi, sh, o, d, h):
+        for l in np.nonzero(h)[0]:
+            rows = np.nonzero(~occ[o:o + d, l])[0][: h[l]]
+            occ[o + rows, l] = True
+            placements.append((bi, l, o + rows))
+        bind[sh][o:o + d] = bi
+        way[bi] = sh
+
+    for bi in order:
+        h = cnt[bi]
+        d = int(demand[bi])
+        placed = False
+        for sh in (0, 1):
+            hl = holes[sh]
+            for k in range(len(hl)):
+                h0, h1 = hl[k]
+                if h1 - h0 < d:
+                    continue
+                o = h0
+                tries = 0
+                while o + d <= h1 and tries < SHELF_HOLE_TRIES:
+                    if fits(o, d, h):
+                        break
+                    o += 1
+                    tries += 1
+                else:
+                    continue
+                place(bi, sh, o, d, h)
+                new = []
+                if o > h0:
+                    new.append((h0, o))
+                if o + d < h1:
+                    new.append((o + d, h1))
+                hl[k:k + 1] = new
+                placed = True
+                break
+            if placed:
+                break
+        if placed:
+            continue
+        sh = 0 if frontier[0] <= frontier[1] else 1
+        o = frontier[sh]
+        pushes = 0
+        while pushes < SHELF_MAX_PUSH:
+            if fits(o, d, h):
+                break
+            o += 1
+            pushes += 1
+        else:
+            o = max(frontier[0], frontier[1])   # fresh ground always fits
+        if o > frontier[sh] and len(holes[sh]) < SHELF_MAX_HOLES:
+            holes[sh].append((frontier[sh], o))
+        place(bi, sh, o, d, h)
+        frontier[sh] = o + d
+    n_sub = max(frontier)
+    flat = np.empty(int(cnt.sum()), np.int64)
+    pstart = np.zeros(cnt.size + 1, np.int64)
+    np.cumsum(cnt.reshape(-1), out=pstart[1:])
+    for bi, l, rows in placements:
+        s0 = int(pstart[bi * LANES + l])
+        flat[s0:s0 + len(rows)] = rows
+    return n_sub, bind[0][:n_sub], bind[1][:n_sub], way, flat
+
+
+def _blowup_guard(slots: int, m: int, where: str = "") -> None:
+    if (slots > PAD_BLOWUP_LIMIT * m and slots > (1 << 20)) or slots * 12 > SLOT_BYTE_CAP:
+        raise NotImplementedError(
+            f"sell2 padding blowup: {slots} packed slots for {m} nonzeros"
+            f"{where}; use coo_seg/ell")
+
+
+def _heavy_split(s: COO, vals_all: np.ndarray, n: int, base_pad: int):
+    """(k_rows, k_cols, k_vals, piece_owner, n_tot): rows longer than
+    SPLIT_T striped over overflow pieces past base_pad, in the final
+    (row, col) order."""
+    lens = np.bincount(s.rows, minlength=n).astype(np.int64)
+    heavy = np.nonzero(lens > SPLIT_T)[0]
+    if not heavy.size:
+        return (s.rows.astype(np.int64), s.cols.astype(np.int64), vals_all, None, n)
+    indptr0 = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=indptr0[1:])
+    p_r = -(-lens[heavy] // SPLIT_T)                # pieces per row
+    ov_off = np.cumsum(p_r) - p_r
+    n_pieces = int(p_r.sum())
+    piece_owner = np.repeat(heavy, p_r).astype(np.int32)
+    rank = np.arange(s.nnz, dtype=np.int64) - indptr0[s.rows]
+    is_h = lens[s.rows] > SPLIT_T
+    hidx = np.searchsorted(heavy, s.rows[is_h])
+    # entry j of a heavy row (col-sorted) → piece j % p_r: consecutive piece
+    # ids cycle lanes mod 128 and stripe every block's pile
+    rows_k_h = base_pad + ov_off[hidx] + rank[is_h] % p_r[hidx]
+    # the (rows_k, col) order without a sort: light entries keep their
+    # order and come first; rank r of a heavy row of length len over p
+    # pieces (q = len // p, rr = len % p) lands at in-row position
+    # (r % p)·q + min(r % p, rr) + r // p
+    rk = rank[is_h]
+    pe = p_r[hidx]
+    le = lens[s.rows[is_h]]
+    qe, rre = le // pe, le % pe
+    j = rk % pe
+    pos_in_row = j * qe + np.minimum(j, rre) + rk // pe
+    hlens = lens[heavy]
+    before = (np.cumsum(hlens) - hlens)[hidx]
+    n_light = int(s.nnz - is_h.sum())
+    target_h = n_light + before + pos_in_row
+    k_rows = np.empty(s.nnz, np.int64)
+    k_cols = np.empty(s.nnz, np.int64)
+    k_vals = np.empty(s.nnz, vals_all.dtype)
+    light = ~is_h
+    k_rows[:n_light] = s.rows[light]
+    k_cols[:n_light] = s.cols[light]
+    k_vals[:n_light] = vals_all[light]
+    k_rows[target_h] = rows_k_h
+    k_cols[target_h] = s.cols[is_h]
+    k_vals[target_h] = vals_all[is_h]
+    return k_rows, k_cols, k_vals, piece_owner, base_pad + n_pieces
+
+
+def _encode_slab(rows_e, cols_e, vals_e, n_chunks: int, rows_slab: int,
+                 virtual_chunks: bool, virt_rows: list, zero, vals_np_dtype):
+    """One slab's panels: (wordA, wordB, vals_arr, chunk_of_panel, P, and
+    per-run panel / level / offset / width / out-slot arrays). Appends the
+    slab's virtual chunks to ``virt_rows``."""
+    m = len(rows_e)
+    lane = rows_e % LANES
+    chunk = cols_e // CHUNK_COLS
+    blkc = (cols_e % CHUNK_COLS) // LANES
+    col_lane = cols_e % LANES
+
+    # ---- virtual chunks: light chunk segments regroup under synthetic
+    # chunk ids (light chunks have ≤ VIRT_DEMAND_T blocks by construction)
+    if virtual_chunks:
+        gb = cols_e // LANES                     # global block id
+        gbu, gbi = np.unique(gb, return_inverse=True)
+        cnt_b = np.zeros((len(gbu), LANES), np.int64)
+        np.add.at(cnt_b, (gbi, lane), 1)
+        dem_b = cnt_b.max(axis=1)                # per-block demand
+        chu = gbu // LANES
+        dem_c = np.zeros(int(chu.max()) + 1, np.int64)
+        np.add.at(dem_c, chu, dem_b)
+        light_b = dem_c[chu] <= VIRT_DEMAND_T
+        if np.unique(chu[light_b]).size >= 2:
+            lb = np.nonzero(light_b)[0]
+            # deal blocks demand-desc round-robin across the pools, so every
+            # pool gets the full heavy→light spectrum
+            lb = lb[np.argsort(-dem_b[lb], kind="stable")]
+            npools = -(-lb.size // LANES)
+            pool_of = np.arange(lb.size) % npools
+            lb = lb[np.argsort(pool_of, kind="stable")]
+            sizes = np.bincount(pool_of, minlength=npools)
+            vid_pool = np.repeat(np.arange(npools), sizes)
+            echunk = chu.copy()
+            eblk = (gbu % LANES).astype(np.int64)
+            echunk[lb] = n_chunks + len(virt_rows) + vid_pool
+            eblk[lb] = np.concatenate([np.arange(c, dtype=np.int64) for c in sizes])
+            o = 0
+            for c in sizes:
+                row = np.zeros(LANES, np.int32)
+                ids = gbu[lb[o:o + int(c)]]
+                row[: len(ids)] = ids.astype(np.int32)
+                virt_rows.append(row)
+                o += int(c)
+            chunk = echunk[gbi]
+            blkc = eblk[gbi]
+
+    # ---- phase A packing: entries sorted (chunk, blk, lane) --------------
+    order = np.lexsort((lane, blkc, chunk))
+    och, obl, oln = chunk[order], blkc[order], lane[order]
+    key_cb = och * LANES + obl
+    cb_u, cb_inv = np.unique(key_cb, return_inverse=True)
+    cnt_cbl = np.zeros((len(cb_u), LANES), np.int64)
+    np.add.at(cnt_cbl, (cb_inv, oln), 1)
+    cb_chunk = cb_u // LANES
+
+    # two-shelf interval packing per chunk-pool
+    pool_ids = np.unique(cb_chunk)
+    packs = []
+    pool_nsub = np.zeros(len(pool_ids), np.int64)
+    for ci, ch in enumerate(pool_ids):
+        sel = np.nonzero(cb_chunk == ch)[0]
+        pk = _twoshelf_pack(cnt_cbl[sel])
+        packs.append((sel,) + pk)
+        pool_nsub[ci] = pk[0]
+
+    # chunk-major stream packed contiguously across chunk boundaries: a
+    # panel mixes sublanes of at most two chunks, so a segment start moves
+    # to the next panel only when its start panel already touches two;
+    # segments are laid longest first
+    seg_start = np.zeros(len(pool_ids), np.int64)
+    panel_touch: List[List[int]] = []
+    q = 0
+    for ci in np.argsort(-pool_nsub, kind="stable"):
+        if pool_nsub[ci] == 0:
+            seg_start[ci] = q
+            continue
+        p0 = q // USABLE
+        if p0 < len(panel_touch) and len(panel_touch[p0]) >= 2:
+            q = (p0 + 1) * USABLE
+        seg_start[ci] = q
+        q_end = q + int(pool_nsub[ci])
+        for pp in range(q // USABLE, (q_end - 1) // USABLE + 1):
+            while len(panel_touch) <= pp:
+                panel_touch.append([])
+            panel_touch[pp].append(int(pool_ids[ci]))
+        q = q_end
+    P = (q + USABLE - 1) // USABLE
+    while len(panel_touch) < P:
+        panel_touch.append([])
+
+    # per entry: stream slot from the packer's pile placements
+    ent_pool = np.searchsorted(pool_ids, cb_chunk)[cb_inv]
+    pool_cnt = np.bincount(ent_pool, minlength=len(pool_ids))
+    pool_start = np.zeros(len(pool_ids) + 1, np.int64)
+    np.cumsum(pool_cnt, out=pool_start[1:])
+    g_abs = np.empty(m, np.int64)
+    way_e = np.empty(m, np.int8)
+    for ci, (sel, n_sub, b0, b1, way_b, flat) in enumerate(packs):
+        e0p, e1p = int(pool_start[ci]), int(pool_start[ci + 1])
+        g_abs[e0p:e1p] = seg_start[ci] + flat
+        lb_e = np.searchsorted(sel, cb_inv[e0p:e1p])
+        way_e[e0p:e1p] = way_b[lb_e]
+    panel = g_abs // USABLE
+    s_sub = g_abs % USABLE
+
+    slots = P * LANES * LANES
+    _blowup_guard(slots, m, " in a slab")
+
+    # ---- phase B: runs = (panel, row) groups -----------------------------
+    orow = rows_e[order]
+    key_pr = panel * SLAB_ROWS + orow
+    order2 = np.argsort(key_pr, kind="stable")
+    kpr2 = key_pr[order2]
+    rstarts = np.r_[0, 1 + np.nonzero(np.diff(kpr2))[0]]
+    rid2 = np.zeros(m, np.int64)
+    rid2[rstarts[1:]] = 1
+    rid2 = np.cumsum(rid2)
+    t_in_run = np.arange(m, dtype=np.int64) - rstarts[rid2]
+    n_runs = len(rstarts)
+    run_len = np.diff(np.r_[rstarts, m])
+    run_panel = panel[order2][rstarts]
+    run_row = orow[order2][rstarts]
+    run_lane = run_row % LANES
+    run_out = run_row // LANES
+    run_w = _next_pow2(run_len)
+    run_level = np.log2(run_w).astype(np.int32)    # capture level 0..7
+
+    # aligned offsets: per (panel, lane), runs sorted by width desc
+    order3 = np.lexsort((-run_w, run_lane, run_panel))
+    key_pl3 = run_panel[order3] * LANES + run_lane[order3]
+    off3 = _grouped_exclusive_cumsum(run_w[order3], key_pl3)
+    if n_runs and int((off3 + run_w[order3]).max()) > ALIGN_BUDGET:
+        raise AssertionError("sell2 internal: aligned budget exceeded")
+    run_off = np.zeros(n_runs, np.int64)
+    run_off[order3] = off3
+    bf_depth = int(run_level.max(initial=0))
+    # lane 126/127 of the identity-route tile must stay un-captured
+    two_tiles = bool((run_off + run_w).max(initial=0) > 126)
+    has_hi = bool(run_out.max(initial=0) >= 128) or rows_slab > 16384
+
+    # ---- array fills -----------------------------------------------------
+    vals_arr = np.full((P * LANES, LANES), zero, vals_np_dtype)
+    # wordA default: align → identity sublane 127, cap 0 (never capture),
+    # hi route = identity (lane 126 of the last align tile)
+    id_tile = 1 if two_tiles else 0
+    wordA = np.full((P * LANES, LANES),
+                    127 | (127 << 7) | (126 << 22) | (id_tile << 29), np.int32)
+    # wordB default: lanesel 0, lo route = identity, blk 0, way 0
+    wordB = np.full((P * LANES, LANES), (126 << 7) | (id_tile << 14), np.int32)
+    # the ≤ 2 chunks touching each panel (single-chunk panels twice)
+    chunk_of_panel = np.zeros((P, 2), np.int32)
+    for pp, touch in enumerate(panel_touch):
+        if touch:
+            chunk_of_panel[pp, 0] = touch[0]
+            chunk_of_panel[pp, 1] = touch[1] if len(touch) > 1 else touch[0]
+
+    flatA = panel * LANES + s_sub                  # stream row index
+    vals_arr[flatA, oln] = vals_e[order]
+    # lanesel (bits 0-6) + way (bit 29) at [stream-sublane, lane]
+    wordB[flatA, oln] |= (col_lane[order].astype(np.int32)
+                          | (way_e.astype(np.int32) << 29))
+    # blk0/blk1 (bits 22-28 / 15-21) + chunk select (bit 30) at
+    # [*, stream-sublane], from the packer's per-sublane shelf bindings
+    blk0_of_sub = np.zeros((P, LANES), np.int32)
+    blk1_of_sub = np.zeros((P, LANES), np.int32)
+    csel_of_sub = np.zeros((P, LANES), np.int32)
+    for ci, (sel, n_sub, b0, b1, _w, _flat) in enumerate(packs):
+        if n_sub == 0:
+            continue
+        g = seg_start[ci] + np.arange(n_sub)
+        sp_panel = g // USABLE
+        sp_sub = g % USABLE
+        blks = (cb_u[sel] % LANES).astype(np.int32)
+        v0 = np.where(b0 >= 0, blks[np.maximum(b0, 0)], -1)
+        v1 = np.where(b1 >= 0, blks[np.maximum(b1, 0)], -1)
+        blk0_of_sub[sp_panel, sp_sub] = np.where(v0 >= 0, v0, np.maximum(v1, 0))
+        blk1_of_sub[sp_panel, sp_sub] = np.where(v1 >= 0, v1, np.maximum(v0, 0))
+        csel_of_sub[sp_panel, sp_sub] = (
+            pool_ids[ci] == chunk_of_panel[sp_panel, 1]).astype(np.int32)
+    wordB |= np.repeat(
+        ((blk0_of_sub << 22) | (blk1_of_sub << 15) | (csel_of_sub << 30))[:, None, :],
+        LANES, axis=1).reshape(P * LANES, LANES)
+
+    # align: aligned slot j of a row-class ← stream sublane
+    j = run_off[rid2] + t_in_run                   # per entry (order2)
+    lane2 = lane[order][order2]
+    s2 = s_sub[order2]
+    p2 = panel[order2]
+    lo = j < LANES
+    rowA = p2 * LANES + lane2
+    iA1 = (rowA[lo], j[lo])
+    wordA[iA1] = (wordA[iA1] & ~np.int32(127)) | s2[lo].astype(np.int32)
+    hi = ~lo
+    iA2 = (rowA[hi], j[hi] - LANES)
+    wordA[iA2] = (wordA[iA2] & ~np.int32(127 << 7)) | (s2[hi].astype(np.int32) << 7)
+
+    # capture levels at [row-class, run offset], stored as level + 1
+    rowR = run_panel * LANES + run_lane
+    f_lo = run_off < LANES
+    iC1 = (rowR[f_lo], run_off[f_lo])
+    wordA[iC1] |= (run_level[f_lo] + 1) << 14
+    f_hi = ~f_lo
+    iC2 = (rowR[f_hi], run_off[f_hi] - LANES)
+    wordA[iC2] |= (run_level[f_hi] + 1) << 18
+
+    # routes at [row-class, out-slot]: lo in wordB (o < 128), hi in wordA
+    route_lane = (run_off % LANES).astype(np.int32)
+    route_tile = (run_off // LANES).astype(np.int32)
+    o_lo = run_out < LANES
+    iRlo = (rowR[o_lo], run_out[o_lo])
+    wordB[iRlo] = (wordB[iRlo] & ~np.int32((127 << 7) | (1 << 14))) | (
+        (route_lane[o_lo] << 7) | (route_tile[o_lo] << 14))
+    o_hi = ~o_lo
+    iRhi = (rowR[o_hi], run_out[o_hi] - LANES)
+    wordA[iRhi] = (wordA[iRhi] & ~np.int32((127 << 22) | (1 << 29))) | (
+        (route_lane[o_hi] << 22) | (route_tile[o_hi] << 29))
+    runs = dict(panel=run_panel, level=run_level, off=run_off, w=run_w, out=run_out)
+    return (wordA, wordB, vals_arr, chunk_of_panel, P, runs,
+            bf_depth, two_tiles, has_hi)
+
+
+def _device_slab(chunk, wordA, wordB, vals, store: torch.dtype,
+                 device: torch.device) -> dict:
+    v = torch.from_numpy(np.ascontiguousarray(vals)).to(device)
+    return {"chunk": torch.from_numpy(np.ascontiguousarray(chunk)).to(device),
+            "wordA": torch.from_numpy(np.ascontiguousarray(wordA)).to(device),
+            "wordB": torch.from_numpy(np.ascontiguousarray(wordB)).to(device),
+            "vals": v.to(store)}
+
+
+def build_sell2(coo: COO, sr: Semiring, value_dtype: str = "float32",
+                split_calls: bool = True, virtual_chunks: bool = True, *,
+                device: DeviceLike = None) -> Sell2Operand:
+    """Pack a COO matrix into the panel stream, as the JAX package's NumPy
+    encoder does, and upload it with its run table.
+
+    ``split_calls``: bucket each slab's panels by (butterfly depth group
+    {0}, {1, 2}, {3+}; two align tiles), one layout per bucket, so that
+    layouts share a row0. ``virtual_chunks``: regroup blocks of light chunk
+    segments into virtual chunks. bf16 values are rounded from float32 in
+    torch, to nearest even, as ml_dtypes rounds them."""
+    device = resolve_device(device)
+    n, c = coo.shape
+    _, _, _, _, zero, as_int = _carrier(sr)
+    np_dtype = np.dtype(np.int32) if as_int else sr.np_dtype
+    bf16 = not as_int and value_dtype == "bfloat16"
+    store = torch.bfloat16 if bf16 else (torch.int32 if as_int else sr.dtype)
+    zero = np.asarray(zero, np_dtype)
+
+    coo = fold_duplicates(coo, _np_fold_for(sr, as_int))
+    s = coo.sorted_by_row()
+    with np.errstate(invalid="ignore"):
+        vals_all = s.vals if not as_int else (s.vals != 0).astype(np.int32)
+        vals_all = vals_all.astype(np_dtype)
+
+    base_pad = round_up(max(n, 1), 1024)
+    k_rows, k_cols, k_vals, piece_owner, n_tot = _heavy_split(s, vals_all, n, base_pad)
+    n_pad = round_up(max(n_tot, 1), 1024)
+    n_chunks = round_up(max(c, 1), CHUNK_COLS) // CHUNK_COLS
+    indptr = np.zeros(n_tot + 1, np.int64)
+    np.cumsum(np.bincount(k_rows, minlength=n_tot), out=indptr[1:])
+
+    slabs: list = []
+    layouts: List[_SlabLayout] = []
+    total_slots = 0
+    virt_rows: List[np.ndarray] = []
+    for r0 in range(0, n_pad, SLAB_ROWS):
+        rows_slab = min(SLAB_ROWS, n_pad - r0)
+        e0 = int(indptr[min(r0, n_tot)])
+        e1 = int(indptr[min(r0 + rows_slab, n_tot)])
+        if e1 == e0:
+            layouts.append(_SlabLayout(r0, rows_slab, 0, 1, False, False))
+            slabs.append(None)
+            continue
+        (wordA, wordB, vals_arr, chunk_of_panel, P, runs, bf_depth, two_tiles,
+         has_hi) = _encode_slab(k_rows[e0:e1] - r0, k_cols[e0:e1], k_vals[e0:e1],
+                                n_chunks, rows_slab, virtual_chunks, virt_rows, zero,
+                                np_dtype)
+        total_slots += P * LANES * LANES
+        if not split_calls:
+            slabs.append(_device_slab(chunk_of_panel, wordA, wordB, vals_arr, store,
+                                      device))
+            layouts.append(_SlabLayout(r0, rows_slab, P, bf_depth, two_tiles, has_hi))
+            continue
+        # panels grouped by like static needs, one layout per bucket
+        rp = runs["panel"]
+        p_depth = np.zeros(P, np.int64)
+        np.maximum.at(p_depth, rp, runs["level"].astype(np.int64))
+        p_end = np.zeros(P, np.int64)
+        np.maximum.at(p_end, rp, runs["off"] + runs["w"])
+        p_two = p_end > 126
+        p_hi = np.zeros(P, bool)
+        np.logical_or.at(p_hi, rp, runs["out"] >= LANES)
+        dgrp = np.where(p_depth == 0, 0, np.where(p_depth <= 2, 1, 2))
+        bkey = dgrp * 2 + p_two.astype(np.int64)
+        wa3 = wordA.reshape(P, LANES, LANES)
+        wb3 = wordB.reshape(P, LANES, LANES)
+        va3 = vals_arr.reshape(P, LANES, LANES)
+        for kk in np.unique(bkey):
+            sel = np.nonzero(bkey == kk)[0]
+            slabs.append(_device_slab(
+                chunk_of_panel[sel], wa3[sel].reshape(-1, LANES),
+                wb3[sel].reshape(-1, LANES), va3[sel].reshape(-1, LANES), store, device))
+            layouts.append(_SlabLayout(
+                r0, rows_slab, len(sel), int(p_depth[sel].max()),
+                bool(p_two[sel].any()), bool(p_hi[sel].any()) or rows_slab > 16384))
+
+    _blowup_guard(total_slots, max(coo.nnz, 1))
+    owner = (torch.from_numpy(piece_owner).to(device)
+             if piece_owner is not None else None)
+    virt = torch.from_numpy(np.stack(virt_rows)).to(device) if virt_rows else None
+    return assemble(slabs, tuple(layouts), n_chunks, n, base_pad, owner, virt, device)
+
+
+def assemble(slabs, layouts, n_chunks: int, n_rows: int, base_pad: int,
+             piece_owner, virt_blocks, device: torch.device) -> Sell2Operand:
+    """A Sell2Operand from slabs on ``device``, with its plan made there."""
+    return Sell2Operand(slabs=list(slabs), layouts=tuple(layouts),
+                        n_chunks=int(n_chunks), n_rows=int(n_rows),
+                        base_pad=int(base_pad), piece_owner=piece_owner,
+                        virt_blocks=virt_blocks,
+                        plan=make_plan(slabs, layouts, piece_owner, base_pad, device))
+
+
+def _row_starts(layouts) -> Tuple[dict, int]:
+    """{row0: first dp row of its slab}, and the dp length before the piece
+    fold: slabs concatenate in the order their row0 first appears."""
+    starts, n_out = {}, 0
+    for lay in layouts:
+        if lay.row0 not in starts:
+            starts[lay.row0] = n_out
+            n_out += lay.rows
+    return starts, n_out
+
+
+def make_plan(slabs, layouts, piece_owner, base_pad: int,
+              device: torch.device) -> Sell2Plan:
+    """The run table of the kernel, decoded from wordA and wordB in torch on
+    ``device``.
+
+    Out slot o of row-class l in a panel reads the offset its route names
+    (lane, and tile when the layout has two align tiles); that offset holds
+    a run when its capture level v satisfies 1 ≤ v ≤ depth + 1, as the TPU
+    kernel captures it, and any other offset gives 0̄, which needs no run."""
+    starts, n_out = _row_starts(layouts)
+    ptrs, panel_layout, panel_local = [], [], []
+    g_all, info_all, row_all, lay_all = [], [], [], []
+    g0 = 0
+    for slab, lay in zip(slabs, layouts):
+        if lay.panels == 0:
+            continue
+        li = len(ptrs)
+        ptrs.append([slab[k].data_ptr() for k in ("chunk", "wordA", "wordB", "vals")])
+        P, d_out = lay.panels, lay.rows // LANES
+        wa = slab["wordA"].view(P, LANES, LANES)
+        route = slab["wordB"].view(P, LANES, LANES)[:, :, :min(d_out, LANES)]
+        lane, tile = (route >> 7) & 127, (route >> 14) & 1
+        if lay.has_hi and d_out > LANES:
+            hi = wa[:, :, :d_out - LANES]
+            lane = torch.cat([lane, (hi >> 22) & 127], dim=2)
+            tile = torch.cat([tile, (hi >> 29) & 1], dim=2)
+        off = lane + LANES * tile if lay.two_tiles else lane
+        word = torch.take_along_dim(wa, (off & 127).long(), dim=2)
+        cap = torch.where(off < LANES, word >> 14, word >> 18) & 15
+        p, l, o = torch.nonzero((cap >= 1) & (cap <= lay.depth + 1), as_tuple=True)
+        g_all.append(g0 + p)
+        info_all.append(l | (off[p, l, o].long() << 7) | ((cap[p, l, o].long() - 1) << 15))
+        row_all.append(starts[lay.row0] + o * LANES + l)
+        lay_all.append(torch.full_like(p, li))
+        panel_layout.append(torch.full((P,), li, dtype=torch.int32, device=device))
+        panel_local.append(torch.arange(P, dtype=torch.int32, device=device))
+        g0 += P
+
+    def cat(parts, dtype=torch.int64):
+        return (torch.cat(parts) if parts
+                else torch.zeros(0, dtype=dtype, device=device))
+
+    g, row, run_lay = cat(g_all), cat(row_all), cat(lay_all)
+    order = torch.argsort(row, stable=True)
+    dest = torch.empty_like(order)
+    dest[order] = torch.arange(order.numel(), device=device)
+
+    def ptr(counts):
+        out = torch.zeros(counts.numel() + 1, dtype=torch.int64, device=device)
+        torch.cumsum(counts, 0, out=out[1:])
+        return out.to(torch.int32)
+
+    if piece_owner is not None:
+        piece_ptr = ptr(torch.bincount(piece_owner.long(), minlength=base_pad))
+    else:
+        piece_ptr = torch.zeros(0, dtype=torch.int32, device=device)
+    return Sell2Plan(
+        layout_ptrs=torch.tensor(ptrs, dtype=torch.int64, device=device).view(-1, 4),
+        panel_layout=cat(panel_layout, torch.int32),
+        panel_local=cat(panel_local, torch.int32),
+        panel_run_ptr=ptr(torch.bincount(g, minlength=g0)),
+        run_info=cat(info_all).to(torch.int32),
+        run_dest=dest.to(torch.int32),
+        run_layout=run_lay[order].to(torch.int32),
+        row_ptr=ptr(torch.bincount(row, minlength=n_out)),
+        piece_ptr=piece_ptr,
+        host_ptrs=tuple(tuple(r) for r in ptrs),
+    )
+
+
+def dp_sell2(op: Sell2Operand, x: torch.Tensor, sr: Semiring, *,
+             n_rows: int) -> torch.Tensor:
+    """⊕-reduced row dot-products over the padded row space (``base_pad``
+    rows when heavy rows were split, else every slab's rows), in the
+    carrier type (int32 for or_and), as the JAX package's dp_sell2. On a
+    CUDA tensor this launches the kernel; on a CPU tensor it runs the plain
+    version."""
+    if op.plan.row_ptr.device.type == "cpu":
+        return dp_sell2_plain(op, x, sr, n_rows=n_rows)
+    return sell2_dp_cuda(op, x, sr)
+
+
+def _x_tiles(op: Sell2Operand, x: torch.Tensor, sr: Semiring) -> torch.Tensor:
+    """x padded with 0̄ to whole chunks in the carrier type, as
+    (chunks + virtual chunks, 128, 128) tiles with tile[c, l, b] = x of
+    block b, lane l."""
+    carrier = _carrier(sr)[0]
+    c_pad = op.n_chunks * CHUNK_COLS
+    x_pad = torch.full((c_pad,), sr.zero, dtype=sr.dtype, device=x.device)
+    x_pad[: x.shape[0]] = x.to(sr.dtype)
+    x_pad = x_pad.to(carrier)
+    tiles = x_pad.view(op.n_chunks, LANES, LANES).transpose(1, 2)
+    if op.virt_blocks is not None:
+        vt = x_pad.view(-1, LANES)[op.virt_blocks.long()]     # (n_v, blocks, lanes)
+        tiles = torch.cat([tiles, vt.transpose(1, 2)])
+    return tiles
+
+
+def _panel_sweep(slab: dict, lay: _SlabLayout, xt: torch.Tensor,
+                 sr: Semiring) -> torch.Tensor:
+    """The TPU kernel's panel body, batched over the layout's panels, then
+    its out tile ⊕-accumulated panel by panel from 0̄: (rows/128, 128)."""
+    _, add, mul, _, zero, _ = _carrier(sr)
+    P, d_out = lay.panels, lay.rows // LANES
+    wb = slab["wordB"].view(P, LANES, LANES)
+    wa = slab["wordA"].view(P, LANES, LANES)
+    vals = slab["vals"].view(P, LANES, LANES)
+    chunk = slab["chunk"].long()
+    xa, xb = xt[chunk[:, 0]], xt[chunk[:, 1]]
+
+    def take(src, idx):
+        return torch.take_along_dim(src, idx.long(), dim=2)
+
+    # staging: staged_w[s, l'] = x tile of the sublane's chunk at (l', blk_w)
+    csel = (wb >> 30) & 1
+    staged = [torch.where(csel == 0, take(xa, b), take(xb, b)).transpose(1, 2)
+              for b in ((wb >> 22) & 127, (wb >> 15) & 127)]
+    # phase A: per-way x element pick, way select, ⊗
+    lanesel = wb & 127
+    w = torch.where(((wb >> 29) & 1) == 0, take(staged[0], lanesel),
+                    take(staged[1], lanesel))
+    contrib = mul(w, vals.float() if vals.dtype == torch.bfloat16 else vals)
+    # phase B: class-major transpose, align, XOR butterfly with captures
+    tc = contrib.transpose(1, 2)
+    czero = torch.full_like(tc, zero)
+    t1 = take(tc, wa & 127)
+    cap1 = (wa >> 14) & 15
+    f1 = torch.where(cap1 == 1, t1, czero)
+    if lay.two_tiles:
+        t2 = take(tc, (wa >> 7) & 127)
+        cap2 = (wa >> 18) & 15
+        f2 = torch.where(cap2 == 1, t2, czero)
+    iota = torch.arange(LANES, device=tc.device)
+    for k in range(1, lay.depth + 1):
+        idx = iota ^ (1 << (k - 1))
+        t1 = add(t1, t1[:, :, idx])
+        f1 = torch.where(cap1 == k + 1, t1, f1)
+        if lay.two_tiles:
+            t2 = add(t2, t2[:, :, idx])
+            f2 = torch.where(cap2 == k + 1, t2, f2)
+    # route: per (row-class, out-slot) the run's captured value
+    q_lo = take(f1, (wb >> 7) & 127)
+    if lay.two_tiles:
+        q_lo = torch.where(((wb >> 14) & 1) == 0, q_lo, take(f2, (wb >> 7) & 127))
+    out = torch.full((d_out, LANES), zero, dtype=tc.dtype, device=tc.device)
+    lo_rows = min(d_out, LANES)
+    q_lo = q_lo.transpose(1, 2)[:, :lo_rows]
+    q_hi = None
+    if lay.has_hi and d_out > LANES:
+        q_hi = take(f1, (wa >> 22) & 127)
+        if lay.two_tiles:
+            q_hi = torch.where(((wa >> 29) & 1) == 0, q_hi, take(f2, (wa >> 22) & 127))
+        q_hi = q_hi.transpose(1, 2)[:, :d_out - LANES]
+    for p in range(P):
+        out[:lo_rows] = add(out[:lo_rows], q_lo[p])
+        if q_hi is not None:
+            out[LANES:] = add(out[LANES:], q_hi[p])
+    return out
+
+
+def dp_sell2_plain(op: Sell2Operand, x: torch.Tensor, sr: Semiring, *,
+                   n_rows: int) -> torch.Tensor:
+    """The plain torch version of :func:`dp_sell2`, on any device: x staged
+    as per-chunk tiles, each layout's panels swept as the TPU kernel does,
+    layouts sharing a row0 ⊕-combined in order, then the piece fold."""
+    carrier, add, _, _, zero, _ = _carrier(sr)
+    xt = _x_tiles(op, x, sr)
+    acc: dict = {}
+    for slab, lay in zip(op.slabs, op.layouts):
+        if lay.panels == 0:
+            acc.setdefault(lay.row0, None)
+            continue
+        tile = _panel_sweep(slab, lay, xt, sr).reshape(-1)
+        prev = acc.get(lay.row0)
+        acc[lay.row0] = tile if prev is None else add(prev, tile)
+    rows = {lay.row0: lay.rows for lay in op.layouts}
+    outs = [t if t is not None else torch.full((rows[r0],), zero, dtype=carrier,
+                                               device=x.device)
+            for r0, t in acc.items()]
+    dp = torch.cat(outs) if len(outs) > 1 else outs[0]
+    return _fold_pieces_plain(op, dp, sr)
+
+
+def _fold_pieces_plain(op: Sell2Operand, dp: torch.Tensor, sr: Semiring) -> torch.Tensor:
+    """dp[:base_pad] ⊕ (each owner's pieces reduced from the reduction's
+    identity, one piece after another, as the kernel does)."""
+    if op.piece_owner is None:
+        return dp
+    add = _carrier(sr)[1]
+    ident = _SEGMENT_IDENTITY[_SEGMENT_REDUCE[add], dp.dtype]
+    ptr = op.plan.piece_ptr.long()
+    counts = ptr[1:] - ptr[:-1]
+    owners = torch.nonzero(counts).flatten()
+    seg = torch.full((op.base_pad,), ident, dtype=dp.dtype, device=dp.device)
+    n_pieces = int(op.piece_owner.shape[0])
+    pieces = dp[op.base_pad:op.base_pad + n_pieces]
+    acc = torch.full((owners.numel(),), ident, dtype=dp.dtype, device=dp.device)
+    first = ptr[owners]
+    for k in range(int(counts.max())):
+        has = counts[owners] > k
+        val = pieces[torch.where(has, first + k, first)]
+        acc = torch.where(has, add(acc, val), acc)
+    seg[owners] = acc
+    return add(dp[:op.base_pad], seg)
+
+
+def sell2_dp_cuda(op: Sell2Operand, x: torch.Tensor, sr: Semiring) -> torch.Tensor:
+    """Launch the sell2 kernel pair (and the piece fold) over every panel of
+    the operand: the carrier-typed dp of :func:`dp_sell2`. Raises on what
+    the kernel does not take and on a refused launch."""
+    plan = op.plan
+    dev = plan.row_ptr.device
+    if dev.type != "cuda" or x.device != dev:
+        raise ValueError("sell2_dp_cuda needs the operand and x on one CUDA device")
+    carrier, *_ = _carrier(sr)
+    launched = [s for s, lay in zip(op.slabs, op.layouts) if lay.panels]
+    store = {s["vals"].dtype for s in launched}
+    if len(store) > 1:
+        raise ValueError(f"mixed value types {store}")
+    store_dtype = store.pop() if store else carrier
+    ok = ((torch.float32, torch.bfloat16) if carrier == torch.float32 else (torch.int32,))
+    if store_dtype not in ok:
+        raise ValueError(f"{sr.name} takes values of {ok}, got {store_dtype}")
+    ptrs = tuple(tuple(s[k].data_ptr() for k in ("chunk", "wordA", "wordB", "vals"))
+                 for s in launched)
+    if ptrs != plan.host_ptrs:
+        raise ValueError("the plan does not belong to these slabs: remake it with assemble")
+    x = x.to(sr.dtype).to(carrier).contiguous()
+    pieces = op.piece_owner is not None
+    dp = torch.empty(plan.n_out, dtype=carrier, device=dev)
+    out = torch.empty(op.base_pad, dtype=carrier, device=dev) if pieces else dp
+    run_vals = torch.empty(max(plan.n_runs, 1), dtype=carrier, device=dev)
+    virt = op.virt_blocks
+    fn = _build.function("sell2", "sh_sell2_dp",
+                         [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_longlong]
+                         + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+                         + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    _build.check_launch("sell2", fn(
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        plan.layout_ptrs.data_ptr(), plan.panel_layout.data_ptr(),
+        plan.panel_local.data_ptr(), plan.panel_run_ptr.data_ptr(),
+        plan.run_info.data_ptr(), plan.run_dest.data_ptr(), plan.run_layout.data_ptr(),
+        plan.row_ptr.data_ptr(), plan.piece_ptr.data_ptr() if pieces else None,
+        x.data_ptr(), x.numel(),
+        virt.data_ptr() if virt is not None else None, op.n_chunks,
+        run_vals.data_ptr(), dp.data_ptr(), out.data_ptr(),
+        plan.n_panels, plan.n_out, op.base_pad if pieces else 0,
+        _build.SR_CODES[sr.name], _build.STRIP_CODES[store_dtype],
+        torch.cuda.current_stream(dev).cuda_stream,
+    ))
+    _build.LAUNCHES["sell2"] += 1
+    return out

@@ -1,7 +1,7 @@
 """The port's fixpoint apps and benchmark harness against the JAX package
-on the same seeded matrices: sssp, bfs and pagerank must agree on x,
-iterations and converged (pagerank's x within 1e-6, since plus_times sums
-in another order)."""
+on the same seeded matrices: sssp, bfs, pagerank, connected_components and
+widest_path must agree on x, iterations and converged (pagerank's x within
+1e-6, since plus_times sums in another order)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +17,8 @@ import sparseharness_tpu_torch.algorithms as ta
 import sparseharness_tpu_torch.formats as tf
 from sparseharness_tpu_torch.algorithms import exact_converged, run_fixpoint
 from sparseharness_tpu_torch.gold import (
-    Correctness, bfs_levels_gold, pagerank_gold, spmv_abs_bound, spmv_gold, sssp_gold,
+    Correctness, bfs_levels_gold, connected_components_gold, pagerank_gold, spmv_abs_bound,
+    spmv_gold, sssp_gold, widest_path_gold,
 )
 from sparseharness_tpu_torch.harness import (
     BenchmarkConfig, Statistic, benchmark_fixpoint, benchmark_spmv,
@@ -55,6 +56,36 @@ def test_app_matches_jax(app, case):
         np.testing.assert_array_equal(x, rx)
     if app == "bfs":
         np.testing.assert_array_equal(port.aux.numpy(), np.asarray(ref.aux))
+
+
+# the two apps of the ragged path: a small power-law graph (auto resolves
+# bsr_fused), one past bsr_fused's tile guard (auto resolves sell2) and a
+# band; ell on the small graphs only, where its padded rows stay narrow
+RAGGED_CASES = [(make, v) for make in ("power_law", "band") for v in ("ell", "sell2", "auto")]
+RAGGED_CASES += [("power_law_20k", "sell2"), ("power_law_20k", "auto")]
+RAGGED_MATRICES = {
+    "power_law": lambda m: m.power_law_coo(3000, 12000, seed=4),
+    "power_law_20k": lambda m: m.power_law_coo(20000, 60000, seed=4),
+    "band": lambda m: m.banded_coo(1500, 20, seed=3),
+}
+
+
+@pytest.mark.parametrize("matrix,variant", RAGGED_CASES)
+@pytest.mark.parametrize("app", ["connected_components", "widest_path"])
+def test_ragged_apps_match_jax_and_golds(app, matrix, variant, monkeypatch):
+    monkeypatch.setenv("SPARSEHARNESS_TPU_NATIVE", "0")
+    make = RAGGED_MATRICES[matrix]
+    args = () if app == "connected_components" else (0,)
+    port = getattr(ta, app)(make(tf), *args, variant=variant, device="cpu")
+    ref = getattr(ja, app)(make(jf), *args, variant=variant)
+    assert port.iterations == int(ref.iterations)
+    assert port.converged == bool(ref.converged)
+    x, rx = port.x.numpy(), np.asarray(ref.x)
+    assert x.dtype == rx.dtype
+    np.testing.assert_array_equal(x, rx)
+    gold = (connected_components_gold(make(tf)) if app == "connected_components"
+            else widest_path_gold(make(tf), 0))
+    np.testing.assert_array_equal(x, gold)
 
 
 def test_apps_match_golds():
@@ -95,8 +126,11 @@ def test_run_fixpoint_stop_rule_matches_jax():
 
 
 def test_reorder_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        ta.sssp(tf.banded_coo(100, 3, seed=1), 0, reorder="rcm", device="cpu")
+    coo = tf.banded_coo(100, 3, seed=1)
+    for app, args in ((ta.sssp, (0,)), (ta.connected_components, ()),
+                      (ta.widest_path, (0,))):
+        with pytest.raises(NotImplementedError):
+            app(coo, *args, reorder="rcm", device="cpu")
 
 
 @pytest.mark.parametrize("value_dtype", ["float32", "bfloat16"])

@@ -1,7 +1,8 @@
 """Kernel tests that need an NVIDIA GPU and nvcc (marker ``cuda``): the
 bsr_band kernel's staged and streamed paths, the strip kernel of bsr_fused
-and bsr_ell, and the gen-1 tile kernel of bsr_pallas, against their plain
-versions on the same CUDA tensors, and spmv launching each kernel. They
+and bsr_ell, the gen-1 tile kernel of bsr_pallas and the sell2 panel
+kernel, against their plain versions on the same CUDA tensors, and spmv
+launching each kernel. They
 skip without a card; run them on one with
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -15,7 +16,9 @@ import pytest
 import torch
 
 from sparseharness_tpu_torch.formats import banded_coo, block_random_coo, random_coo
-from sparseharness_tpu_torch.ops import LAUNCHES, bsr, bsr_band, bsr_ell, bsr_fused, spmv
+from sparseharness_tpu_torch.ops import (
+    LAUNCHES, bsr, bsr_band, bsr_ell, bsr_fused, sell2, spmv,
+)
 from sparseharness_tpu_torch.semiring import REGISTRY, PLUS_TIMES, get_semiring
 
 # (semiring, strip dtype): bf16 strips only for the float semirings
@@ -139,8 +142,56 @@ def test_tile_kernel_matches_plain(name, tiles_per_slab, cuda):
         _assert_kernel_matches(name, got, ref, bound)
 
 
+def _sell2_cases():
+    """The layout cases of tests/test_sell2.py: a 600-entry hub row (split
+    into pieces), 60 light chunks (virtual chunks), two slabs (hi route),
+    three chunks, a power-law graph with pieces and bucket layouts sharing
+    a row0, empty rows, and one entry per row."""
+    from sparseharness_tpu_torch.formats import coo_from_arrays, power_law_coo
+
+    rng = np.random.default_rng(5)
+    bg = random_coo(1200, 4000, 5000, seed=6)
+    hub = coo_from_arrays(np.r_[np.full(600, 7), bg.rows],
+                          np.r_[rng.choice(4000, 600, replace=False), bg.cols],
+                          np.r_[rng.uniform(0.1, 1.0, 600).astype(np.float32), bg.vals],
+                          (1200, 4000))
+    rng = np.random.default_rng(9)
+    ch = np.repeat(np.arange(60), 64)
+    cols = (ch * 16384 + np.repeat(np.tile(np.arange(4), 60), 16) * 128
+            + rng.integers(0, 128, ch.size))
+    light = coo_from_arrays(rng.integers(0, 4096, ch.size), cols,
+                            rng.uniform(0.1, 1.0, ch.size).astype(np.float32),
+                            (4096, 60 * 16384))
+    rows = np.arange(2000)
+    return [hub, light, random_coo(32768 + 3000, 900, 40_000, seed=1),
+            random_coo(700, 2 * 16384 + 5000, 30_000, seed=2),
+            power_law_coo(20000, 60000, seed=4),
+            coo_from_arrays([0, 1, 2], [10, 20, 30], [1.0, 2.0, 3.0], (5000, 5000)),
+            coo_from_arrays(rows, (rows * 37) % 2000,
+                            np.linspace(0.1, 1.0, 2000).astype(np.float32), (2000, 2000))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", ["bsr_fused", "bsr_ell", "bsr_pallas"])
+@pytest.mark.parametrize("name,value_dtype", CASES)
+def test_sell2_kernel_matches_plain(name, value_dtype, cuda):
+    """Bit for bit for every semiring (the kernel keeps the plain version's
+    order of ⊕, plus_times included), and the same bits on a second run."""
+    sr = get_semiring(name)
+    for coo in _sell2_cases():
+        if sr.dtype == torch.bool:
+            coo = coo.with_values(coo.vals != 0)
+        op = sell2.build_sell2(coo, sr, value_dtype=value_dtype, device=cuda)
+        x = _x(sr, coo.shape[1], seed=7).to(cuda)
+        got = sell2.sell2_dp_cuda(op, x, sr)
+        again = sell2.sell2_dp_cuda(op, x, sr)
+        torch.cuda.synchronize()
+        ref = sell2.dp_sell2_plain(op, x, sr, n_rows=coo.shape[0])
+        assert got.dtype == ref.dtype and torch.equal(got, ref)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["bsr_fused", "bsr_ell", "bsr_pallas", "sell2"])
 def test_spmv_launches_blocked_kernel(variant, cuda):
     from sparseharness_tpu_torch.ops import build_operand
 

@@ -14,7 +14,9 @@ import pytest
 import torch
 
 import sparseharness_tpu_torch
-from sparseharness_tpu_torch.algorithms import bfs, make_spmv_problem, pagerank, sssp
+from sparseharness_tpu_torch.algorithms import (
+    bfs, connected_components, make_spmv_problem, pagerank, sssp, widest_path,
+)
 from sparseharness_tpu_torch.formats import banded_coo
 from sparseharness_tpu_torch.ops import build_operand
 from sparseharness_tpu_torch.semiring import PLUS_TIMES
@@ -67,7 +69,11 @@ def test_no_source_names_jax():
     lambda coo: sssp(coo, 0),
     lambda coo: bfs(coo, 0),
     lambda coo: pagerank(coo),
-], ids=["build_operand", "make_spmv_problem", "sssp", "bfs", "pagerank"])
+    lambda coo: connected_components(coo),
+    lambda coo: widest_path(coo, 0),
+    lambda coo: build_operand(coo, PLUS_TIMES, "sell2"),
+], ids=["build_operand", "make_spmv_problem", "sssp", "bfs", "pagerank",
+        "connected_components", "widest_path", "build_sell2"])
 def test_entry_points_raise_without_a_card(entry, monkeypatch):
     """With no card and no explicit device an entry point raises; it never
     falls back to the CPU on its own."""

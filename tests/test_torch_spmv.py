@@ -124,12 +124,14 @@ def test_fold_dp_clamps_min_plus_overflow():
 
 
 def test_auto_chain_picks_band_then_fused():
+    """The port's chain is the JAX package's, sell2 included."""
+    from sparseharness_tpu.ops.registry import AUTO_CHAIN as JAX_AUTO_CHAIN
+
     sr = get_semiring("plus_times")
-    assert AUTO_CHAIN == ("bsr_band", "bsr_fused", "bsr_ell", "ell")
+    assert AUTO_CHAIN == JAX_AUTO_CHAIN == ("bsr_band", "bsr_fused", "sell2", "bsr_ell", "ell")
     name, _ = build_operand_auto(tf.banded_coo(600, 10, seed=1), sr, device="cpu")
     assert name == "bsr_band"
     name, _ = build_operand_auto(tf.random_coo(2048, 2048, 3000, seed=1), sr,
                                  device="cpu")
     assert name == "bsr_fused"
-    with pytest.raises(KeyError):
-        get_variant("sell2")  # not ported yet
+    assert get_variant("sell2").name == "sell2"  # registered

@@ -2,7 +2,7 @@
 package's on the same seeded matrices: builds equal, dp equal bit for bit
 (plus_times within 1e-5 · max(1, |dp|, Σ|a·x|)), empty coo_seg rows with
 the reduction's identity as in JAX; and the auto chain resolving the same
-variant as JAX."""
+variant as JAX, sell2 included."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -120,23 +120,40 @@ def test_dia_refuses_what_jax_refuses():
             build_operand(make(tf), sr, "dia", device="cpu")
 
 
-# matrices on which the JAX chain does not stop at sell2 (not ported), so
-# both chains must name the same variant
+def _wide(m):
+    """x above bsr_fused's 6 MB cap: both chains go on to sell2."""
+    return m.coo_from_arrays([0, 3, 5], [0, 900_000, 1_600_000], [1.0, 2.0, 3.0],
+                             (8, 1_600_001))
+
+
+def _scattered(m):
+    """One entry per row in each of 400 chunks, x past bsr_fused's cap:
+    sell2's padding guard refuses (a panel per handful of entries), so both
+    chains go on to bsr_ell."""
+    rows = np.arange(1 << 14)
+    return m.coo_from_arrays(rows, (rows % 400) * 16384 + (rows // 400) % 128 * 128,
+                             np.ones(len(rows), np.float32), (1 << 14, 400 * 16384))
+
+
+# matrices on which both chains must name the same variant
 AUTO_MATRICES = {
     "band": (lambda m: m.banded_coo(600, 10, seed=1), "bsr_band"),
     "random": (lambda m: m.random_coo(2048, 2048, 3000, seed=1), "bsr_fused"),
     "blocks": (lambda m: m.block_random_coo(2048, 3, seed=2), "bsr_fused"),
     "power_law": (lambda m: m.power_law_coo(3000, 12000, seed=4), "bsr_fused"),
     "chained": (lambda m: m.chained_power_law_coo(4000, 2, seed=6), "bsr_fused"),
+    "power_law_20k": (lambda m: m.power_law_coo(20000, 60000, seed=4), "sell2"),
+    "wide": (_wide, "sell2"),
 }
 
 
 @pytest.mark.parametrize("value_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("matrix", sorted(AUTO_MATRICES))
-def test_auto_resolves_as_jax(matrix, value_dtype):
+def test_auto_resolves_as_jax(matrix, value_dtype, monkeypatch):
     from sparseharness_tpu.ops import Geometry as JaxGeometry
     from sparseharness_tpu_torch.ops import Geometry
 
+    monkeypatch.setenv("SPARSEHARNESS_TPU_NATIVE", "0")
     make, want = AUTO_MATRICES[matrix]
     sr, jsr = get_semiring("plus_times"), jax_semiring("plus_times")
     name, _ = build_operand_auto(make(tf), sr, Geometry(8, 128, value_dtype), device="cpu")
@@ -144,11 +161,11 @@ def test_auto_resolves_as_jax(matrix, value_dtype):
     assert name == jname == want
 
 
-def test_auto_past_the_fused_cap_takes_bsr_ell():
-    """x above bsr_fused's 6 MB cap: the JAX chain tries sell2 next, which
-    is not ported; the port's chain goes on to bsr_ell."""
-    sr = get_semiring("plus_times")
-    wide = tf.coo_from_arrays([0, 3, 5], [0, 900_000, 1_600_000], [1.0, 2.0, 3.0],
-                              (8, 1_600_001))
-    name, op = build_operand_auto(wide, sr, device="cpu")
-    assert name == "bsr_ell" and op.tile_cols.shape == (8, 3)
+def test_auto_past_the_fused_cap_takes_bsr_ell(monkeypatch):
+    """x above bsr_fused's 6 MB cap and a layout sell2 refuses: both chains
+    take bsr_ell."""
+    monkeypatch.setenv("SPARSEHARNESS_TPU_NATIVE", "0")
+    sr, jsr = get_semiring("plus_times"), jax_semiring("plus_times")
+    name, op = build_operand_auto(_scattered(tf), sr, device="cpu")
+    jname, _ = jax_auto(_scattered(jf), jsr)
+    assert name == jname == "bsr_ell" and op.tile_cols.shape[0] == (1 << 14) // 8
