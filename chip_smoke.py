@@ -63,7 +63,30 @@ result. Phases:
    (the median of five windows, the host's enqueue time per call, and the
    device time of each of its kernels from torch.profiler), its plain
    version, torch.mv on a CSR tensor of the same matrix, the bound, and
-   the seconds of each build.
+   the seconds of each build;
+13. the SpMM kernels against their plain versions: spmm_tiles for all
+   seven semirings and strip types over bsr_ell and bsr_fused strips of
+   random_coo(300, 257, 2500, seed=3) and random_coo(64, 4096, 6000,
+   seed=5) (K > 8) and the explicit columns of banded_coo(96, 40,
+   seed=53), spmm_band in f32 and bf16, at m up to 200; bit for bit except
+   plus_times (within the tolerance above, and the same bits twice);
+14. the SpMM path, with the launch counters reset just before phase 14
+   and read just after phase 16: spmm at full width on the bench band (m =
+   128 and 256 in f32, 128 with bf16 strips: spmm_band) and on the blocked
+   matrix (plus_times at m = 8 and 128, min_plus and or_and at 128, over
+   the bsr_ell and the bsr_fused operand: spmm_tiles), each held against
+   the chunked plain version and, on four columns, against the port's spmv;
+15. multi_sssp and multi_bfs on the blocked matrix from 128 seeded roots
+   (bsr_ell, and auto resolving bsr_fused), one spmm_tiles launch a step,
+   every column certified, four equal to the single-source solves;
+16. the other multi-source routes: bsr_band operands through spmm_tiles on
+   banded_coo(1 << 16, 63, seed=1) with 8 roots, the column map of sell2
+   on the ragged matrix (8 sell2 launches a step), and a shuffled band
+   solved with reorder="rcm", which must resolve bsr_band and equal the
+   unshuffled solve;
+17. SpMM kernel times at the full-width points: the median of five 20-call
+   windows, the plain version, torch.sparse.mm on a CSR tensor (cuSPARSE,
+   f32 plus_times only) and the bound.
 
 Then the kernels line, the nvidia-smi line and, last, the ok line.
 """
@@ -935,6 +958,433 @@ def stage_ms(torch, fn, n: int = 20) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ SpMM
+
+SPMM_BAND_N = 1 << 16   # the band-routed multi-source depth (about 1,200 steps)
+SPMM_ROOTS = 128        # roots of the full-width multi-source solves
+
+
+def random_block(torch, sr, n: int, m: int, gen) -> "torch.Tensor":
+    """An (n, m) X on the card from a seeded CUDA generator."""
+    u = torch.rand((n, m), generator=gen, device="cuda")
+    if sr.dtype == torch.bool:
+        return u < 0.3
+    if sr.dtype == torch.int32:
+        return (u * n).to(torch.int32)
+    return u * 0.9 + 0.1
+
+
+def check_same_bits(torch, label, got, again) -> None:
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError(f"{label}: two runs differ")
+
+
+def spmm_vs_plain_small(torch, errs) -> int:
+    """Both SpMM kernels against their plain versions on the tests'
+    matrices: spmm_tiles for every semiring and strip type over bsr_ell and
+    bsr_fused strips of random_coo(300, 257, 2500, seed=3) and of
+    random_coo(64, 4096, 6000, seed=5) (K > 8), and over the explicit
+    columns of banded_coo(96, 40, seed=53), at m in (1, 5, 40, 200);
+    spmm_band in f32 and bf16 at m in (1, 40, 200). Bit for bit but
+    plus_times, which must also give the same bits on a second run."""
+    from sparseharness_tpu_torch.formats import banded_coo, random_coo
+    from sparseharness_tpu_torch.ops import bsr_band, bsr_ell, bsr_fused, spmm_tiles
+    from sparseharness_tpu_torch.semiring import PLUS_TIMES, get_semiring
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    mats = [random_coo(300, 257, 2500, seed=3), random_coo(64, 4096, 6000, seed=5)]
+    band = banded_coo(96, 40, seed=53)
+    checked = 0
+    for name, vd in all_cases(torch):
+        sr = get_semiring(name)
+        ops = []
+        for coo in mats:
+            ops.append((f"bsr_ell{coo.shape}", coo.shape[1], bsr_ell.build_bsr_ell(
+                coo, sr, value_dtype=vd, device="cuda")))
+            ops.append((f"bsr_fused{coo.shape}", coo.shape[1],
+                        spmm_tiles.ell_operand_from_fused(bsr_fused.build_bsr_fused(
+                            coo, sr, value_dtype=vd, device="cuda"))))
+        ops.append(("band(96, 40)", 96, spmm_tiles.ell_operand_from_band(
+            bsr_band.build_bsr_band(band, sr, value_dtype=vd, device="cuda"))))
+        for label, n_cols, op in ops:
+            bn = op.tiles.shape[2] // op.tile_cols.shape[1]
+            for m in (1, 5, 40, 200):
+                x2d = spmm_tiles.pad_x_block(random_block(torch, sr, n_cols, m, gen), bn, sr)
+                got = spmm_tiles.spmm_tiles_cuda(op.tiles, op.tile_cols, x2d, sr)
+                ref = spmm_tiles.spmm_tiles_plain(op.tiles, op.tile_cols, x2d, sr)
+                bound = None
+                if name == "plus_times":
+                    check_same_bits(torch, f"spmm_tiles {label} {vd} m={m}", got,
+                                    spmm_tiles.spmm_tiles_cuda(op.tiles, op.tile_cols, x2d, sr))
+                    bound = spmm_tiles.spmm_tiles_plain(op.tiles.abs(), op.tile_cols,
+                                                        x2d.abs(), PLUS_TIMES)
+                errs["spmm_tiles"] = max(errs["spmm_tiles"], check_kernel(
+                    torch, f"spmm_tiles {label} {name}/{vd} m={m}", got, ref, bound))
+                checked += 1
+    for vd in ("float32", "bfloat16"):
+        for coo in (banded_coo(1024, 7, seed=1), banded_coo(600, 4, seed=3), band):
+            op = bsr_band.build_bsr_band(coo, PLUS_TIMES, value_dtype=vd, device="cuda")
+            for m in (1, 40, 200):
+                x2d = bsr_band.pad_x_block(op, random_block(torch, PLUS_TIMES, coo.shape[1],
+                                                            m, gen))
+                args = dict(c0=op.c0, k_win=op.k_win)
+                got = bsr_band.band_spmm_cuda(op.strips, x2d, **args)
+                check_same_bits(torch, f"spmm_band {coo.shape} {vd} m={m}", got,
+                                bsr_band.band_spmm_cuda(op.strips, x2d, **args))
+                ref = bsr_band.band_spmm_plain(op.strips, x2d, **args)
+                bound = bsr_band.band_spmm_plain(op.strips.abs(), x2d, **args)
+                errs["spmm_band"] = max(errs["spmm_band"], check_kernel(
+                    torch, f"spmm_band {coo.shape} {vd} m={m}", got, ref, bound))
+                checked += 1
+    return checked
+
+
+def column_spmvs(torch, coo, op, variant, sr, x, cols, gold_coo) -> dict:
+    """spmv of X's columns ``cols`` through the port's SpMV path; the first
+    is gated against the NumPy gold (within 1e-4 · max(1, |gold|, Σ|a·x|)
+    for plus_times, exactly otherwise)."""
+    from sparseharness_tpu_torch.gold import Correctness, check_result, spmv_abs_bound, spmv_gold
+    from sparseharness_tpu_torch.ops import spmv
+
+    n = coo.shape[0]
+    out = {j: spmv(op, x[:, j].contiguous(), None, sr=sr, variant=variant, n_rows=n)
+           for j in cols}
+    x0 = x[:, cols[0]].cpu().numpy()
+    gold = spmv_gold(gold_coo, x0, np.full(n, sr.zero, sr.np_dtype), sr)
+    plus = sr.name == "plus_times"
+    corr = check_result(out[cols[0]].cpu().numpy(), gold, exact=not plus,
+                        scale=spmv_abs_bound(gold_coo, x0) if plus else None)
+    if corr is not Correctness.CORRECT:
+        raise AssertionError(f"spmv gate of column {cols[0]} ({sr.name}, {variant}): {corr}")
+    return out
+
+
+def bf16_values(torch, coo):
+    """coo with its values as bf16 strips hold them."""
+    return coo.with_values(torch.from_numpy(coo.vals).to(torch.bfloat16).float().numpy())
+
+
+def spmm_full_width(torch, coo, bcoo, out, errs) -> None:
+    """spmm at full width through the entry point: the bench band at m =
+    128 and 256 (f32) and 128 (bf16 strips), which must launch spmm_band;
+    the blocked matrix under plus_times at m = 8 and 128 and min_plus and
+    or_and at m = 128 through the bsr_ell and the bsr_fused operand, which
+    must launch spmm_tiles. Each result is held against the chunked plain
+    version on the card, and four of its columns against the port's
+    spmv of that column (the first gated against the NumPy gold): bit for
+    bit for min_plus and or_and, within PT_DELTA · max(1, |y|, Σ|a·x|) for
+    plus_times."""
+    from sparseharness_tpu_torch.ops import (
+        LAUNCHES, Geometry, build_operand, ell_operand_from_fused, spmm, spmm_band_plain,
+        spmm_bsr_ell_plain,
+    )
+    from sparseharness_tpu_torch.ops.torch_ops import fold_dp
+    from sparseharness_tpu_torch.semiring import MIN_PLUS, OR_AND, PLUS_TIMES
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+
+    def run(kernel, label, op, variant, sr, x, n, plain, abs_plain, spmv_cols):
+        before = LAUNCHES[kernel]
+        t0 = time.perf_counter()
+        y = spmm(op, x, sr=sr, variant=variant, n_rows=n)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if LAUNCHES[kernel] - before != 1:
+            raise AssertionError(f"{label}: spmm did not launch {kernel}")
+        ref = plain(x)
+        bound = abs_plain(x) if sr is PLUS_TIMES else None
+        errs[kernel] = max(errs[kernel], check_kernel(torch, label, y, ref, bound))
+        for j, col in spmv_cols.items():
+            if j < x.shape[1]:
+                check_kernel(torch, f"{label} column {j} vs spmv", y[:, j], col,
+                             None if bound is None else bound[:, j])
+        out.append({"spmm": label, "kernel": kernel, "shape": list(y.shape),
+                    "seconds": dt, "columns_vs_spmv": sorted(j for j in spmv_cols
+                                                            if j < x.shape[1])})
+
+    n = coo.shape[0]
+    x256 = random_block(torch, PLUS_TIMES, n, 256, gen)
+    for vd, ms in (("float32", (128, 256)), ("bfloat16", (128,))):
+        op = build_operand(coo, PLUS_TIMES, "bsr_band", Geometry(8, 128, vd))
+        abs_op = dataclasses.replace(op, strips=op.strips.abs())
+        cols = column_spmvs(torch, coo, op, "bsr_band", PLUS_TIMES, x256, (0, 37, 77, 127),
+                            bf16_values(torch, coo) if vd == "bfloat16" else coo)
+        for m in ms:
+            x = x256 if m == 256 else x256[:, :m].contiguous()
+            run("spmm_band", f"band {vd} m={m}", op, "bsr_band", PLUS_TIMES, x, n,
+                lambda x: spmm_band_plain(op, x, n_rows=n),
+                lambda x: spmm_band_plain(abs_op, x, n_rows=n), cols)
+            del x
+        del op, abs_op
+    del x256
+
+    n = bcoo.shape[0]
+    x128 = random_block(torch, PLUS_TIMES, n, 128, gen)
+    xbool = random_block(torch, OR_AND, n, 128, gen)
+    for sr, x, ms in ((PLUS_TIMES, x128, (8, 128)), (MIN_PLUS, x128, (128,)),
+                      (OR_AND, xbool, (128,))):
+        for variant in ("bsr_ell", "bsr_fused"):
+            op = build_operand(bcoo, sr, variant)
+            tile_op = op if variant == "bsr_ell" else ell_operand_from_fused(op)
+            abs_op = tile_op._replace(tiles=tile_op.tiles.abs())
+            cols = column_spmvs(torch, bcoo, op, variant, sr, x, (0, 3, 5, 7)
+                                if sr is PLUS_TIMES else (0, 31, 64, 127), bcoo)
+            for m in ms:
+                xm = x if m == x.shape[1] else x[:, :m].contiguous()
+                run("spmm_tiles", f"blocked {variant} {sr.name} m={m}", op, variant, sr, xm,
+                    n, lambda x: fold_dp(spmm_bsr_ell_plain(tile_op, x, sr, n_rows=n), None,
+                                         sr, None, None),
+                    lambda x: spmm_bsr_ell_plain(abs_op, x, PLUS_TIMES, n_rows=n), cols)
+            del op, tile_op, abs_op
+
+
+def multi_source_full_width(torch, bcoo, out) -> None:
+    """multi_sssp and multi_bfs with the default bsr_ell, and multi_sssp
+    with variant="auto" (which must resolve bsr_fused), on the blocked
+    matrix from SPMM_ROOTS seeded roots. Each launches spmm_tiles exactly
+    once per step. Certificates: sssp x[root_j, j] = 0, x ≥ 0 and A⊗X = X
+    off the roots, every column, with the chunked plain version; bfs
+    levels of four columns equal bfs_levels_gold; four columns of each
+    equal the port's single-source solve bit for bit."""
+    from sparseharness_tpu_torch.algorithms import bfs, multi_bfs, multi_sssp, sssp
+    from sparseharness_tpu_torch.gold import bfs_levels_gold
+    from sparseharness_tpu_torch.ops import (
+        LAUNCHES, build_operand, build_operand_auto, spmm_bsr_ell_plain,
+    )
+    from sparseharness_tpu_torch.ops.torch_ops import fold_dp
+    from sparseharness_tpu_torch.semiring import MIN_PLUS
+
+    n = bcoo.shape[0]
+    roots = np.random.default_rng(23).choice(n, SPMM_ROOTS, replace=False)
+    ridx = torch.as_tensor(roots, device="cuda")
+    cidx = torch.arange(SPMM_ROOTS, device="cuda")
+    picks = (0, 1, SPMM_ROOTS // 2, SPMM_ROOTS - 1)
+
+    def run(app, **kw):
+        before = LAUNCHES["spmm_tiles"]
+        t0 = time.perf_counter()
+        r = app(bcoo, roots, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launched = LAUNCHES["spmm_tiles"] - before
+        if launched != r.iterations:
+            raise AssertionError(f"{app.__name__}: {launched} spmm_tiles launches for "
+                                 f"{r.iterations} steps")
+        return r, dt
+
+    t0 = time.perf_counter()
+    ell_op = build_operand(bcoo, MIN_PLUS, "bsr_ell")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    for variant in ("bsr_ell", "auto"):
+        kw = {} if variant == "bsr_ell" else {"variant": "auto"}
+        r, dt = run(multi_sssp, **kw)
+        ax = fold_dp(spmm_bsr_ell_plain(ell_op, r.x, MIN_PLUS, n_rows=n), None, MIN_PLUS,
+                     None, None)
+        off_root = torch.ones_like(r.x, dtype=torch.bool)
+        off_root[ridx, cidx] = False
+        cert = bool(r.converged and bool((r.x[ridx, cidx] == 0).all())
+                    and bool((r.x >= 0).all()) and torch.equal(ax[off_root], r.x[off_root]))
+        singles = all(torch.equal(r.x[:, j], sssp(bcoo, int(roots[j]), variant="bsr_ell").x)
+                      for j in picks)
+        resolved = "bsr_ell"
+        if variant == "auto":
+            resolved = build_operand_auto(bcoo, MIN_PLUS)[0]
+        out.append({"app": "multi_sssp", "variant": f"{variant} -> {resolved}",
+                    "roots": SPMM_ROOTS, "iterations": r.iterations, "converged": r.converged,
+                    "seconds": dt, "bsr_ell_build_seconds": build_s,
+                    "certificate": "x[root_j, j] == 0, x >= 0 and A⊗X == X off the roots "
+                                   "(every column); 4 columns == sssp",
+                    "certified": cert, "columns_equal_single_source": singles,
+                    "reached": int((r.x < 3e38).sum())})
+        if not (cert and singles and resolved == ("bsr_ell" if variant == "bsr_ell"
+                                                  else "bsr_fused")):
+            raise AssertionError(f"multi_sssp ({variant} -> {resolved}) certificate failed")
+        del r, ax, off_root
+
+    r, dt = run(multi_bfs)
+    t0 = time.perf_counter()
+    levels = all(np.array_equal(r.aux[:, j].cpu().numpy(), bfs_levels_gold(bcoo, int(roots[j])))
+                 for j in picks)
+    gold_s = time.perf_counter() - t0
+    singles = all(torch.equal(r.aux[:, j], bfs(bcoo, int(roots[j]), variant="bsr_ell").aux)
+                  for j in picks)
+    cert = bool(r.converged and levels)
+    out.append({"app": "multi_bfs", "variant": "bsr_ell", "roots": SPMM_ROOTS,
+                "iterations": r.iterations, "converged": r.converged, "seconds": dt,
+                "gold_seconds": gold_s,
+                "certificate": "4 columns' levels == bfs_levels_gold and == bfs",
+                "certified": cert, "columns_equal_single_source": singles})
+    if not (cert and singles):
+        raise AssertionError("multi_bfs certificate failed")
+
+
+def multi_source_routes(torch, rcoo, out) -> None:
+    """The other routes of the multi-source apps: on banded_coo(1 << 16, 63,
+    seed=1) with 8 roots and variant="bsr_band", min_plus and or_and take
+    spmm_tiles through the band's explicit columns (one launch a step); on
+    the ragged matrix multi_bfs with variant="auto" resolves sell2 and maps
+    spmv over its 8 columns (8 sell2 launches a step); the band shuffled by
+    a seeded permutation and solved with reorder="rcm" must resolve
+    bsr_band after RCM and equal the unshuffled solve after un-permuting."""
+    from sparseharness_tpu_torch.algorithms import apps, multi_bfs, multi_sssp
+    from sparseharness_tpu_torch.formats import (
+        banded_coo, bandwidth, permute_coo, rcm_permutation,
+    )
+    from sparseharness_tpu_torch.gold import bfs_levels_gold
+    from sparseharness_tpu_torch.ops import (
+        LAUNCHES, build_operand, build_operand_auto, ell_operand_from_band, spmm_bsr_ell_plain,
+    )
+    from sparseharness_tpu_torch.ops.torch_ops import fold_dp
+    from sparseharness_tpu_torch.semiring import MIN_PLUS
+
+    band = banded_coo(SPMM_BAND_N, BAND, seed=1)
+    n = band.shape[0]
+    roots = np.random.default_rng(29).choice(n, 8, replace=False)
+
+    def run(kernel, per_step, app, coo, rts, **kw):
+        before = LAUNCHES[kernel]
+        t0 = time.perf_counter()
+        r = app(coo, rts, **kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launched = LAUNCHES[kernel] - before
+        if launched != per_step * r.iterations:
+            raise AssertionError(f"{app.__name__}: {launched} {kernel} launches for "
+                                 f"{r.iterations} steps")
+        return r, dt
+
+    r_sssp, dt = run("spmm_tiles", 1, multi_sssp, band, roots, variant="bsr_band")
+    op = ell_operand_from_band(build_operand(band, MIN_PLUS, "bsr_band"))
+    ax = fold_dp(spmm_bsr_ell_plain(op, r_sssp.x, MIN_PLUS, n_rows=n), None, MIN_PLUS,
+                 None, None)
+    off_root = torch.ones_like(r_sssp.x, dtype=torch.bool)
+    off_root[torch.as_tensor(roots, device="cuda"), torch.arange(8, device="cuda")] = False
+    cert = bool(r_sssp.converged and torch.equal(ax[off_root], r_sssp.x[off_root]))
+    out.append({"app": "multi_sssp", "matrix": f"banded{n}", "variant": "bsr_band",
+                "roots": 8, "iterations": r_sssp.iterations, "seconds": dt,
+                "certificate": "A⊗X == X off the roots", "certified": cert})
+    if not cert:
+        raise AssertionError("band multi_sssp certificate failed")
+    del op, ax, off_root
+
+    r, dt = run("spmm_tiles", 1, multi_bfs, band, roots, variant="bsr_band")
+    # the band is complete, so a vertex is ceil(|i − root| / BAND) levels out
+    dist = (torch.arange(n, device="cuda")[:, None]
+            - torch.as_tensor(roots, device="cuda")[None, :]).abs()
+    want = ((dist + BAND - 1) // BAND).to(torch.int32)
+    cert = bool(r.converged and torch.equal(r.aux, want))
+    out.append({"app": "multi_bfs", "matrix": f"banded{n}", "variant": "bsr_band",
+                "roots": 8, "iterations": r.iterations, "seconds": dt,
+                "certificate": f"levels == ceil(|i − root| / {BAND}), every column",
+                "certified": cert})
+    if not cert:
+        raise AssertionError("band multi_bfs certificate failed")
+
+    rroots = np.random.default_rng(31).choice(rcoo.shape[0], 8, replace=False)
+    r, dt = run("sell2", 8, multi_bfs, rcoo, rroots, variant="auto")
+    cert = bool(r.converged and all(np.array_equal(r.aux[:, j].cpu().numpy(),
+                                                   bfs_levels_gold(rcoo, int(rroots[j])))
+                                    for j in (0, 7)))
+    out.append({"app": "multi_bfs", "matrix": f"zipf{rcoo.shape[0]}",
+                "variant": "auto -> sell2 (column map)", "roots": 8,
+                "iterations": r.iterations, "seconds": dt,
+                "certificate": "8 sell2 launches a step; 2 columns' levels == bfs_levels_gold",
+                "certified": cert})
+    if not cert:
+        raise AssertionError("ragged multi_bfs certificate failed")
+
+    scramble = np.random.default_rng(37).permutation(n).astype(np.int32)
+    shuffled = permute_coo(band, scramble)
+    inv_scramble = np.argsort(scramble)
+    # The solve's own RCM is the only one: it is timed and kept as it runs.
+    seen = {}
+
+    def watched_rcm(coo):
+        t0 = time.perf_counter()
+        seen["perm"] = rcm_permutation(coo)
+        seen["seconds"] = time.perf_counter() - t0
+        return seen["perm"]
+
+    apps.rcm_permutation = watched_rcm
+    try:
+        t0 = time.perf_counter()
+        r = multi_sssp(shuffled, inv_scramble[roots], variant="auto", reorder="rcm")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        apps.rcm_permutation = rcm_permutation
+    reordered = permute_coo(shuffled, seen["perm"])
+    resolved = build_operand_auto(reordered, MIN_PLUS)[0]
+    # shuffled vertex i is band vertex scramble[i]
+    same = torch.equal(r.x, r_sssp.x[torch.as_tensor(scramble, device="cuda").long()])
+    out.append({"app": "multi_sssp", "matrix": f"shuffled banded{n}",
+                "variant": f"auto, reorder=rcm -> {resolved}", "roots": 8,
+                "iterations": r.iterations, "seconds": dt, "rcm_seconds": seen["seconds"],
+                "bandwidth_before": bandwidth(shuffled), "bandwidth_after": bandwidth(reordered),
+                "certificate": "resolves bsr_band; x == the unshuffled band's x, un-permuted",
+                "certified": bool(same and resolved == "bsr_band")})
+    if not (same and resolved == "bsr_band"):
+        raise AssertionError(f"rcm multi_sssp: resolved {resolved}, equal {same}")
+
+
+def spmm_kernel_times(torch, coo, bcoo) -> dict:
+    """Both SpMM kernels at the full-width points: the median of five
+    20-call windows, the chunked plain version, torch.sparse.mm on a CSR
+    tensor of the same matrix (cuSPARSE SpMM, plus_times in f32 only: no
+    library call computes the other semirings) and the bound. The bound
+    counts the strips (and tile_cols), X once and Y once, and 2 operations
+    per nonzero per column: the strips' pad slots are bytes the kernel must
+    read but no work the product needs."""
+    from sparseharness_tpu_torch.harness import device_hbm_bandwidth
+    from sparseharness_tpu_torch.ops import Geometry, bsr_band, build_operand, spmm_tiles
+    from sparseharness_tpu_torch.semiring import MIN_PLUS, PLUS_TIMES
+
+    bw = device_hbm_bandwidth(torch.cuda.get_device_name(0))
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    res = {}
+    n = coo.shape[0]
+    x256 = random_block(torch, PLUS_TIMES, n, 256, gen)
+    csr = csr_of(torch, coo)
+    for vd, m in (("float32", 128), ("float32", 256), ("bfloat16", 128)):
+        op = build_operand(coo, PLUS_TIMES, "bsr_band", Geometry(8, 128, vd))
+        x2d = bsr_band.pad_x_block(op, x256 if m == 256 else x256[:, :m].contiguous())
+        out_bytes = op.strips.shape[0] * op.strips.shape[1] * m * 4
+        entry = bound(tensor_bytes(op.strips, x2d) + out_bytes, 2 * coo.nnz * m, bw)
+        args = dict(c0=op.c0, k_win=op.k_win)
+        entry.update(time_windows(torch, lambda: bsr_band.band_spmm_cuda(op.strips, x2d,
+                                                                         **args)))
+        entry["plain_ms"] = time_ms(torch, lambda: bsr_band.band_spmm_plain(op.strips, x2d,
+                                                                            **args), 2)
+        if vd == "float32":
+            entry["library_ms"] = time_ms(torch, lambda: torch.sparse.mm(csr, x2d[:n]), 10)
+        res[f"band {vd} m={m}"] = entry
+        del op, x2d
+    del x256, csr
+
+    n = bcoo.shape[0]
+    x128 = random_block(torch, PLUS_TIMES, n, 128, gen)
+    csr = csr_of(torch, bcoo)
+    for sr, m in ((PLUS_TIMES, 128), (PLUS_TIMES, 8), (MIN_PLUS, 128)):
+        op = build_operand(bcoo, sr, "bsr_ell")
+        bn = op.tiles.shape[2] // op.tile_cols.shape[1]
+        x2d = spmm_tiles.pad_x_block(x128 if m == 128 else x128[:, :m].contiguous(), bn, sr)
+        out_bytes = op.tiles.shape[0] * op.tiles.shape[1] * m * 4
+        entry = bound(tensor_bytes(op.tiles, op.tile_cols, x2d) + out_bytes,
+                      2 * bcoo.nnz * m, bw)
+        entry.update(time_windows(torch, lambda: spmm_tiles.spmm_tiles_cuda(
+            op.tiles, op.tile_cols, x2d, sr)))
+        entry["plain_ms"] = time_ms(torch, lambda: spmm_tiles.spmm_tiles_plain(
+            op.tiles, op.tile_cols, x2d, sr), 2)
+        entry["library_ms"] = (time_ms(torch, lambda: torch.sparse.mm(csr, x2d[:n]), 10)
+                               if sr is PLUS_TIMES else None)
+        res[f"blocked {sr.name} m={m}"] = entry
+        del op, x2d
+    del csr
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1067,6 +1517,33 @@ def main() -> int:
         rtimes = ragged_kernel_times(torch, rcoo)
         f.update(card=card, nvidia_smi=smi, times=rtimes)
 
+    serrs = {"spmm_band": 0.0, "spmm_tiles": 0.0}
+    with Phase("spmm_kernel_vs_plain_small") as f:
+        f["comparisons"] = spmm_vs_plain_small(torch, serrs)
+
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    sp_lines, ms_lines, route_lines = [], [], []
+    with Phase("main_path_spmm") as f:
+        spmm_full_width(torch, coo, bcoo, sp_lines, serrs)
+        f.update(card=card, nvidia_smi=smi, runs=sp_lines, max_abs_err=serrs)
+    with Phase("main_path_multi_source") as f:
+        multi_source_full_width(torch, bcoo, ms_lines)
+        f.update(card=card, nvidia_smi=smi, runs=ms_lines)
+    with Phase("main_path_multi_source_routes") as f:
+        multi_source_routes(torch, rcoo, route_lines)
+        f.update(card=card, nvidia_smi=smi, runs=route_lines)
+    slaunches = dict(LAUNCHES)
+    emit({"phase": "main_path_spmm_launches", "launches": slaunches})
+    for kernel in ("spmm_band", "spmm_tiles"):
+        if slaunches[kernel] <= 0:
+            raise AssertionError(f"the {kernel} kernel never launched on the SpMM path")
+        launches[kernel] = slaunches[kernel]
+
+    with Phase("spmm_kernel_times") as f:
+        stimes = spmm_kernel_times(torch, coo, bcoo)
+        f.update(card=card, nvidia_smi=smi, times=stimes)
+
     f32 = times["float32"]
     replaces = {"staged": "sparseharness_tpu/ops/pallas_bsr_band.py:180",
                 "streamed": "sparseharness_tpu/ops/pallas_bsr_band.py:259"}
@@ -1107,6 +1584,17 @@ def main() -> int:
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": rtimes["library_ms"],
     })
+    for name, point, replaces in (
+            ("spmm_band", "band float32 m=128", "sparseharness_tpu/ops/pallas_bsr_band.py:334"),
+            ("spmm_tiles", "blocked plus_times m=128", "sparseharness_tpu/ops/spmm_tiles.py:130")):
+        t = stimes[point]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"sparseharness_tpu_torch/ops/csrc/{name}.cu", "replaces": replaces,
+            "launches": launches[name], "max_abs_err": serrs[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
     emit({"kernels": kernels})
     print(nvidia_smi())
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -7,11 +7,14 @@ its module layout and names, for one NVIDIA GPU:
 - semirings as torch ops (``semiring``)
 - SpMV variants: plain-torch ``ell``, ``coo_seg``, ``dense`` and ``dia``,
   and hand-written CUDA kernels for ``bsr_band``, the blocked variants and
-  ``sell2`` (``ops``, sources in ``ops/csrc``, built with nvcc at first use)
+  ``sell2``; semiring SpMM (``spmm``) with CUDA kernels for band and strip
+  operands (``ops``, sources in ``ops/csrc``, built with nvcc at first use)
+- RCM reordering (``formats.reorder``)
 - NumPy golds and correctness checks (``gold``)
 - the benchmark harness, timed with CUDA events (``harness``)
-- the fixpoint loop and the sssp / bfs / pagerank / connected_components /
-  widest_path apps (``algorithms``)
+- the fixpoint loop, the sssp / bfs / pagerank / connected_components /
+  widest_path apps and the multi-source multi_sssp / multi_bfs
+  (``algorithms``)
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 without a card they raise rather than fall back. It imports neither JAX
@@ -35,6 +38,7 @@ from sparseharness_tpu_torch.ops import (  # noqa: F401
     Geometry,
     build_operand,
     build_operand_auto,
+    spmm,
     spmv,
 )
 from sparseharness_tpu_torch.formats import (  # noqa: F401
@@ -48,6 +52,8 @@ from sparseharness_tpu_torch.formats import (  # noqa: F401
 from sparseharness_tpu_torch.algorithms import (  # noqa: F401
     bfs,
     connected_components,
+    multi_bfs,
+    multi_sssp,
     pagerank,
     sssp,
     widest_path,

@@ -9,6 +9,8 @@ from sparseharness_tpu_torch.algorithms.apps import (  # noqa: F401
     bfs,
     connected_components,
     make_spmv_problem,
+    multi_bfs,
+    multi_sssp,
     pagerank,
     spmv_once,
     sssp,

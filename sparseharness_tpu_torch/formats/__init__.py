@@ -23,3 +23,10 @@ from sparseharness_tpu_torch.formats.mtx import (  # noqa: F401
     read_mtx_header,
 )
 from sparseharness_tpu_torch.formats.preprocess import pagerank_normalise  # noqa: F401
+from sparseharness_tpu_torch.formats.reorder import (  # noqa: F401
+    bandwidth,
+    inverse_permutation,
+    permute_coo,
+    rcm_permutation,
+    reorder_rcm,
+)

@@ -53,3 +53,11 @@ from sparseharness_tpu_torch.ops.sell2 import (  # noqa: F401
     dp_sell2,
     dp_sell2_plain,
 )
+from sparseharness_tpu_torch.ops.bsr_band import spmm_band, spmm_band_plain  # noqa: F401
+from sparseharness_tpu_torch.ops.spmm_tiles import (  # noqa: F401
+    ell_operand_from_band,
+    ell_operand_from_fused,
+    spmm_bsr_ell,
+    spmm_bsr_ell_plain,
+)
+from sparseharness_tpu_torch.ops.spmm import spmm  # noqa: F401

@@ -36,7 +36,8 @@ _LOADED: Dict[str, ctypes.CDLL] = {}
 #: launches its kernel and nowhere else, so a run that resets the counts
 #: shows which kernels its work went through
 LAUNCHES: Dict[str, int] = {"staged": 0, "streamed": 0, "bsr_fused": 0,
-                            "bsr_ell": 0, "bsr_pallas": 0, "sell2": 0}
+                            "bsr_ell": 0, "bsr_pallas": 0, "sell2": 0,
+                            "spmm_band": 0, "spmm_tiles": 0}
 
 #: semiring codes of the C interface, as csrc/semiring.cuh:SrCode
 SR_CODES = {"plus_times": 0, "min_plus": 1, "or_and": 2, "max_min": 3,

@@ -124,6 +124,25 @@ def device_tiles(coo: COO, sr: Semiring, bm: int, bn: int,
     )
 
 
+#: bytes of the ⊗ products that a plain SpMM version holds at once
+PLAIN_CHUNK_BYTES = 1 << 30
+
+
+def pad_x_block(x_block: torch.Tensor, bn: int, sr: Semiring,
+                min_rows: int = 0) -> torch.Tensor:
+    """X (n_cols, m) padded with 0̄ to whole bn-blocks of rows (at least
+    ``min_rows``), row-major, in the carrier type (bool → int32); the
+    columns are not padded. X itself when it is that already."""
+    n, m = x_block.shape
+    carrier, *_ = _carrier(sr)
+    c_pad = max(round_up(max(n, 1), bn), min_rows)
+    if c_pad == n and x_block.dtype == carrier and x_block.is_contiguous():
+        return x_block
+    x_pad = torch.full((c_pad, m), sr.zero, dtype=sr.dtype, device=x_block.device)
+    x_pad[:n] = x_block.to(sr.dtype)
+    return x_pad.to(carrier)
+
+
 def pad_x2d(x: torch.Tensor, bn: int, sr: Semiring) -> torch.Tensor:
     """x padded with 0̄ to a whole number of bn-blocks, as (c_blocks, bn) in
     the carrier type (bool → int32)."""

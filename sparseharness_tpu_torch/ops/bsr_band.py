@@ -24,6 +24,11 @@ On a CUDA tensor :func:`dp_bsr_band` launches the hand-written kernel of
 On a CPU tensor it runs :func:`dp_bsr_band_plain`, the plain torch
 version of the same padded dp, which the tests and ``chip_smoke.py`` hold
 the kernel against.
+
+:func:`spmm_band` is the band's plus_times SpMM, Y = A·X for an (n_cols, m)
+X: on a CUDA tensor it launches the tiled FP32 product of
+``csrc/spmm_band.cu`` (the counterpart of the JAX package's
+``spmm_band``), on a CPU tensor :func:`spmm_band_plain`.
 """
 
 from __future__ import annotations
@@ -36,9 +41,9 @@ import numpy as np
 import torch
 
 from sparseharness_tpu_torch.formats.sparse import COO, round_up
-from sparseharness_tpu_torch.ops import _build
+from sparseharness_tpu_torch.ops import _build, bsr
 from sparseharness_tpu_torch.ops.bsr import _check_layout, _check_strip_dtype, fold_on_device
-from sparseharness_tpu_torch.semiring import Semiring
+from sparseharness_tpu_torch.semiring import PLUS_TIMES, Semiring
 from sparseharness_tpu_torch.semiring.core import _carrier, _np_fold_for
 from sparseharness_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -271,4 +276,96 @@ def band_dp_cuda(strips: torch.Tensor, x2d: torch.Tensor, sr: Semiring, *,
         _build.STRIP_CODES[strips.dtype], int(stage_x), stream,
     ))
     LAUNCHES["staged" if stage_x else "streamed"] += 1
+    return out
+
+
+# ------------------------------------------------------------------ SpMM
+
+
+def pad_x_block(op: BsrBandOperand, x_block: torch.Tensor) -> torch.Tensor:
+    """X (n_cols, m) in float32, padded with zero rows to whole bn-blocks
+    and at least the K blocks of one window (as :func:`pad_x`)."""
+    bn = op.strips.shape[2] // op.k_win
+    return bsr.pad_x_block(x_block, bn, PLUS_TIMES, min_rows=op.k_win * bn)
+
+
+def spmm_band(op: BsrBandOperand, x_block: torch.Tensor, *, n_rows: int) -> torch.Tensor:
+    """Y = A·X (plus_times only): (n_rows, m) float32 from X (n_cols, m).
+
+    On a CUDA tensor this launches the kernel of ``csrc/spmm_band.cu``; on
+    a CPU tensor it runs :func:`spmm_band_plain`. Other semirings go
+    through ``spmm_tiles`` (see ``ops.spmm``)."""
+    if op.strips.device.type == "cpu":
+        return spmm_band_plain(op, x_block, n_rows=n_rows)
+    y = band_spmm_cuda(op.strips, pad_x_block(op, x_block), c0=op.c0, k_win=op.k_win)
+    return y[:n_rows]
+
+
+def spmm_band_plain(op: BsrBandOperand, x_block: torch.Tensor, *,
+                    n_rows: int) -> torch.Tensor:
+    """The plain torch version of :func:`spmm_band`, on any device."""
+    y = band_spmm_plain(op.strips, pad_x_block(op, x_block), c0=op.c0, k_win=op.k_win)
+    return y[:n_rows]
+
+
+def band_spmm_plain(strips: torch.Tensor, x2d: torch.Tensor, *, c0: int,
+                    k_win: int) -> torch.Tensor:
+    """Padded Y (r_rows·bm, m) from strips and a padded (c_blocks·bn, m) X:
+    each group's X window is gathered, multiplied with the group's strips by
+    broadcast and summed over the window, a chunk of groups at a time so
+    that the products stay within bsr.PLAIN_CHUNK_BYTES."""
+    r_rows, bm, kbn = strips.shape
+    k = k_win
+    bn = kbn // k
+    gs = bn // bm
+    n_groups = r_rows // gs
+    m = x2d.shape[1]
+    xb = x2d.view(-1, bn, m)
+    max_base = max(xb.shape[0] - k, 0)
+    step = max(1, bsr.PLAIN_CHUNK_BYTES // max(gs * bm * kbn * m * 4, 1))
+    out = torch.empty((n_groups, gs * bm, m), dtype=torch.float32, device=x2d.device)
+    st_all = strips.view(n_groups, gs * bm, kbn)
+    for g0 in range(0, n_groups, step):
+        groups = torch.arange(g0, min(g0 + step, n_groups), device=x2d.device)
+        base = (groups + c0).clamp(0, max_base)
+        win = xb[base[:, None] + torch.arange(k, device=x2d.device)].reshape(-1, kbn, m)
+        st = st_all[g0:g0 + step].float()
+        out[g0:g0 + step] = (win[:, None] * st[..., None]).sum(dim=2)
+    return out.view(r_rows * bm, m)
+
+
+def band_spmm_cuda(strips: torch.Tensor, x2d: torch.Tensor, *, c0: int,
+                   k_win: int) -> torch.Tensor:
+    """Launch the SpMM kernel: padded Y (r_rows·bm, m) float32.
+
+    Raises on what the kernel does not take and on a refused launch."""
+    if strips.device.type != "cuda" or x2d.device != strips.device:
+        raise ValueError("band_spmm_cuda needs strips and X on one CUDA device")
+    if strips.dim() != 3 or x2d.dim() != 2:
+        raise ValueError("strips must be (r_rows, bm, K·bn) and X (c_pad, m)")
+    r_rows, bm, kbn = strips.shape
+    k = k_win
+    if k <= 0 or kbn % k:
+        raise ValueError(f"bad window: K·bn={kbn}, K={k}")
+    bn = kbn // k
+    if bn % bm or bn % 16 or r_rows % (bn // bm):
+        raise ValueError(f"kernel needs bn % bm == 0, bn % 16 == 0 and whole "
+                         f"groups: bm={bm}, bn={bn}, r_rows={r_rows}")
+    if x2d.dtype != torch.float32 or x2d.shape[0] % bn or x2d.shape[0] < k * bn:
+        raise ValueError(f"X must be (c_blocks·{bn}, m) float32 with c_blocks ≥ {k}, "
+                         f"got {tuple(x2d.shape)} {x2d.dtype}")
+    if strips.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"spmm_band takes f32 or bf16 strips, got {strips.dtype}")
+    _check_layout(strips, x2d)
+    m = x2d.shape[1]
+    out = torch.empty((r_rows * bm, m), dtype=torch.float32, device=strips.device)
+    fn = _build.function("spmm_band", "sh_spmm_band",
+                         [ctypes.c_int] + [ctypes.c_void_p] * 3
+                         + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    _build.check_launch("spmm_band", fn(
+        strips.device.index, strips.data_ptr(), x2d.data_ptr(), out.data_ptr(),
+        r_rows, bm, kbn, k, c0, x2d.shape[0] // bn, m, _build.STRIP_CODES[strips.dtype],
+        torch.cuda.current_stream(strips.device).cuda_stream,
+    ))
+    LAUNCHES["spmm_band"] += 1
     return out

@@ -129,6 +129,14 @@ __device__ __forceinline__ void load_strip4(const __nv_bfloat16* p, float (&v)[4
   v[3] = __bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(t.y >> 16)));
 }
 
+// one strip entry in the compute type, with a streaming load
+__device__ __forceinline__ float load_strip1(const float* p) { return __ldcs(p); }
+__device__ __forceinline__ int load_strip1(const int* p) { return __ldcs(p); }
+__device__ __forceinline__ float load_strip1(const __nv_bfloat16* p) {
+  return __bfloat162float(
+      __ushort_as_bfloat16(__ldcs(reinterpret_cast<const unsigned short*>(p))));
+}
+
 // four consecutive x entries from shared memory (SHARED) or through the
 // read-only cache; 16-byte aligned
 template <bool SHARED>

@@ -125,12 +125,16 @@ def test_run_fixpoint_stop_rule_matches_jax():
         np.testing.assert_array_equal(port.x.numpy(), np.asarray(ref.x))
 
 
-def test_reorder_not_ported_yet():
+def test_unknown_reorder_method_raises():
+    """An unknown method raises ValueError, as in the JAX package."""
     coo = tf.banded_coo(100, 3, seed=1)
-    for app, args in ((ta.sssp, (0,)), (ta.connected_components, ()),
-                      (ta.widest_path, (0,))):
-        with pytest.raises(NotImplementedError):
-            app(coo, *args, reorder="rcm", device="cpu")
+    for app, args in ((ta.sssp, (0,)), (ta.bfs, (0,)), (ta.pagerank, ()),
+                      (ta.connected_components, ()), (ta.widest_path, (0,)),
+                      (ta.multi_sssp, ([0, 1],)), (ta.multi_bfs, ([0],))):
+        with pytest.raises(ValueError, match="unknown reorder method"):
+            app(coo, *args, reorder="amd", device="cpu")
+    with pytest.raises(ValueError, match="unknown reorder method"):
+        ja.sssp(jf.banded_coo(100, 3, seed=1), 0, reorder="amd")
 
 
 @pytest.mark.parametrize("value_dtype", ["float32", "bfloat16"])

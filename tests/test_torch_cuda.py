@@ -1,8 +1,9 @@
 """Kernel tests that need an NVIDIA GPU and nvcc (marker ``cuda``): the
 bsr_band kernel's staged and streamed paths, the strip kernel of bsr_fused
-and bsr_ell, the gen-1 tile kernel of bsr_pallas and the sell2 panel
-kernel, against their plain versions on the same CUDA tensors, and spmv
-launching each kernel. They
+and bsr_ell, the gen-1 tile kernel of bsr_pallas, the sell2 panel kernel
+and the two SpMM kernels (spmm_band, spmm_tiles), against their plain
+versions on the same CUDA tensors, and spmv, spmm and multi_sssp launching
+each kernel. They
 skip without a card; run them on one with
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -17,7 +18,7 @@ import torch
 
 from sparseharness_tpu_torch.formats import banded_coo, block_random_coo, random_coo
 from sparseharness_tpu_torch.ops import (
-    LAUNCHES, bsr, bsr_band, bsr_ell, bsr_fused, sell2, spmv,
+    LAUNCHES, bsr, bsr_band, bsr_ell, bsr_fused, sell2, spmm, spmm_tiles, spmv,
 )
 from sparseharness_tpu_torch.semiring import REGISTRY, PLUS_TIMES, get_semiring
 
@@ -204,3 +205,120 @@ def test_spmv_launches_blocked_kernel(variant, cuda):
     assert LAUNCHES[variant] == before[variant] + 1
     assert sum(LAUNCHES.values()) == sum(before.values()) + 1
     assert y.is_cuda and y.shape == (coo.shape[0],)
+
+
+def _x_block(sr, n, m, seed):
+    rng = np.random.default_rng(seed)
+    if sr.dtype == torch.bool:
+        x = rng.random((n, m)) < 0.3
+    elif sr.dtype == torch.int32:
+        x = rng.integers(0, 50, (n, m)).astype(np.int32)
+    else:
+        x = rng.uniform(0.1, 1.0, (n, m)).astype(np.float32)
+    return torch.from_numpy(x)
+
+
+def _spmm_tile_operands(sr, value_dtype, cuda):
+    """(n_cols, strip operand): random blocks as bsr_ell and as bsr_fused
+    (views of its slabs), K > 8, and a band whose window is wider than the
+    matrix, through its explicit columns; and tile shapes whose bm is no
+    multiple of 4, whose bn is no multiple of 4 (the kernel's scalar
+    loads), whose rows take several passes (bm = 72) and whose shared
+    memory passes 48 KB."""
+    ops = []
+    for coo in (random_coo(300, 257, 2500, seed=3), random_coo(64, 4096, 6000, seed=5)):
+        ops.append((coo.shape[1], bsr_ell.build_bsr_ell(coo, sr, value_dtype=value_dtype,
+                                                         device=cuda)))
+        ops.append((coo.shape[1], spmm_tiles.ell_operand_from_fused(bsr_fused.build_bsr_fused(
+            coo, sr, value_dtype=value_dtype, device=cuda))))
+    coo = random_coo(300, 257, 2500, seed=3)
+    for bm, bn in ((6, 64), (5, 30), (16, 256), (72, 128)):
+        ops.append((coo.shape[1], bsr_ell.build_bsr_ell(coo, sr, bm=bm, bn=bn,
+                                                         value_dtype=value_dtype, device=cuda)))
+    band = bsr_band.build_bsr_band(banded_coo(96, 40, seed=53), sr, value_dtype=value_dtype,
+                                   device=cuda)
+    ops.append((96, spmm_tiles.ell_operand_from_band(band)))
+    return ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,value_dtype", CASES)
+def test_spmm_tiles_kernel_matches_plain(name, value_dtype, cuda):
+    """Bit for bit but plus_times (within the tolerance), column tails and
+    more than one column tile (m = 200), the same bits on a second run."""
+    sr = get_semiring(name)
+    for n_cols, op in _spmm_tile_operands(sr, value_dtype, cuda):
+        bn = op.tiles.shape[2] // op.tile_cols.shape[1]
+        for m in (1, 5, 40, 200):
+            x2d = spmm_tiles.pad_x_block(_x_block(sr, n_cols, m, seed=m).to(cuda), bn, sr)
+            got = spmm_tiles.spmm_tiles_cuda(op.tiles, op.tile_cols, x2d, sr)
+            again = spmm_tiles.spmm_tiles_cuda(op.tiles, op.tile_cols, x2d, sr)
+            torch.cuda.synchronize()
+            ref = spmm_tiles.spmm_tiles_plain(op.tiles, op.tile_cols, x2d, sr)
+            bound = None
+            if name == "plus_times":
+                bound = spmm_tiles.spmm_tiles_plain(op.tiles.abs(), op.tile_cols, x2d.abs(),
+                                                    PLUS_TIMES)
+            assert got.dtype == ref.dtype and got.shape == ref.shape
+            _assert_kernel_matches(name, got, ref, bound)
+            assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("value_dtype", ["float32", "bfloat16"])
+def test_spmm_band_kernel_matches_plain(value_dtype, cuda):
+    for coo in (banded_coo(1024, 7, seed=1), banded_coo(600, 4, seed=3),
+                banded_coo(96, 40, seed=53), banded_coo(3000, 300, seed=2)):
+        op = bsr_band.build_bsr_band(coo, PLUS_TIMES, value_dtype=value_dtype, device=cuda)
+        for m in (1, 40, 200):
+            x2d = bsr_band.pad_x_block(op, _x_block(PLUS_TIMES, coo.shape[1], m, seed=m).to(cuda))
+            got = bsr_band.band_spmm_cuda(op.strips, x2d, c0=op.c0, k_win=op.k_win)
+            again = bsr_band.band_spmm_cuda(op.strips, x2d, c0=op.c0, k_win=op.k_win)
+            torch.cuda.synchronize()
+            ref = bsr_band.band_spmm_plain(op.strips, x2d, c0=op.c0, k_win=op.k_win)
+            bound = bsr_band.band_spmm_plain(op.strips.abs(), x2d, c0=op.c0, k_win=op.k_win)
+            _assert_kernel_matches("plus_times", got, ref, bound)
+            assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,variant,kernel", [
+    ("plus_times", "bsr_band", "spmm_band"), ("min_plus", "bsr_band", "spmm_tiles"),
+    ("or_and", "bsr_ell", "spmm_tiles"), ("plus_times", "bsr_fused", "spmm_tiles"),
+])
+def test_spmm_launches_kernel(name, variant, kernel, cuda):
+    from sparseharness_tpu_torch.ops import build_operand
+
+    sr = get_semiring(name)
+    coo = banded_coo(2000, 30, seed=1)
+    op = build_operand(coo, sr, variant, device=cuda)
+    x = _x_block(sr, coo.shape[1], 6, seed=4).to(cuda)
+    before = dict(LAUNCHES)
+    y = spmm(op, x, sr=sr, variant=variant, n_rows=coo.shape[0])
+    torch.cuda.synchronize()
+    assert LAUNCHES[kernel] == before[kernel] + 1
+    assert sum(LAUNCHES.values()) == sum(before.values()) + 1
+    assert y.is_cuda and y.shape == (coo.shape[0], 6) and y.dtype == sr.dtype
+    cpu_op = build_operand(coo, sr, variant, device="cpu")
+    ref = spmm(cpu_op, x.cpu(), sr=sr, variant=variant, n_rows=coo.shape[0])
+    bound = None
+    if name == "plus_times":
+        abs_op = build_operand(coo.with_values(np.abs(coo.vals)), sr, variant, device="cpu")
+        bound = spmm(abs_op, x.cpu().abs(), sr=sr, variant=variant, n_rows=coo.shape[0])
+    _assert_kernel_matches(name, y.cpu(), ref, bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app", ["multi_sssp", "multi_bfs"])
+def test_multi_source_launches_once_per_step(app, cuda):
+    import sparseharness_tpu_torch.algorithms as ta
+
+    coo = banded_coo(2000, 30, seed=1)
+    roots = [0, 500, 1999]
+    before = LAUNCHES["spmm_tiles"]
+    r = getattr(ta, app)(coo, roots, variant="bsr_band")
+    torch.cuda.synchronize()
+    assert LAUNCHES["spmm_tiles"] - before == r.iterations > 1
+    ref = getattr(ta, app)(coo, roots, variant="bsr_band", device="cpu")
+    assert (r.iterations, r.converged) == (ref.iterations, ref.converged)
+    assert torch.equal(r.x.cpu(), ref.x)

@@ -15,7 +15,8 @@ import torch
 
 import sparseharness_tpu_torch
 from sparseharness_tpu_torch.algorithms import (
-    bfs, connected_components, make_spmv_problem, pagerank, sssp, widest_path,
+    bfs, connected_components, make_spmv_problem, multi_bfs, multi_sssp, pagerank, sssp,
+    widest_path,
 )
 from sparseharness_tpu_torch.formats import banded_coo
 from sparseharness_tpu_torch.ops import build_operand
@@ -72,8 +73,13 @@ def test_no_source_names_jax():
     lambda coo: connected_components(coo),
     lambda coo: widest_path(coo, 0),
     lambda coo: build_operand(coo, PLUS_TIMES, "sell2"),
+    lambda coo: multi_sssp(coo, [0, 3]),
+    lambda coo: multi_bfs(coo, [0, 3]),
+    lambda coo: sssp(coo, 0, reorder="rcm"),
+    lambda coo: multi_sssp(coo, [0], variant="bsr_band", reorder="rcm"),
 ], ids=["build_operand", "make_spmv_problem", "sssp", "bfs", "pagerank",
-        "connected_components", "widest_path", "build_sell2"])
+        "connected_components", "widest_path", "build_sell2", "multi_sssp", "multi_bfs",
+        "sssp_rcm", "multi_sssp_rcm"])
 def test_entry_points_raise_without_a_card(entry, monkeypatch):
     """With no card and no explicit device an entry point raises; it never
     falls back to the CPU on its own."""
