@@ -61,7 +61,8 @@ result. Phases:
    launch per step), each certified;
 12. kernel timing at the ragged shape: the sell2 kernel in f32 and bf16
    (the median of five windows, the host's enqueue time per call, and the
-   device time of each of its kernels from torch.profiler), its plain
+   device time per launch of each of its kernels from torch.profiler, with
+   the launches it recorded), its plain
    version, torch.mv on a CSR tensor of the same matrix, the bound, and
    the seconds of each build;
 13. the SpMM kernels against their plain versions: spmm_tiles for all
@@ -86,7 +87,34 @@ result. Phases:
    unshuffled solve;
 17. SpMM kernel times at the full-width points: the median of five 20-call
    windows, the plain version, torch.sparse.mm on a CSR tensor (cuSPARSE,
-   f32 plus_times only) and the bound.
+   f32 plus_times only) and the bound;
+18. the sell kernels (phase A and the gather-reduce level) against the
+   plain dp: all seven semirings on the matrices of tests/test_torch_sell.py
+   (power_law_coo(1500, 9000, seed=4), a 400-entry hub row, two or more
+   slabs at slab_nnz=8000, empty rows and a duplicate) and the gate's
+   random_coo(1138, 1138, 4054, seed=0), then min_plus and or_and on
+   banded_coo(1 << 16, 63, seed=1): bit for bit, plus_times included, and
+   the same bits on a second call;
+19. the sell path, with the launch counters reset just before phase 19 and
+   read just after phase 21: banded_coo(1 << 18, 63, seed=1) (262,144
+   columns, the widest x that sell's XROWS_MAX admits; 33,288,256 nnz)
+   through make_spmv_problem and benchmark_spmv with variant="sell",
+   gold-gated in f32, with the seconds of its NumPy build;
+20. sssp and bfs with variant="sell" on banded_coo(1 << 16, 63, seed=1),
+   one phase-A launch a step, certified as in phase 3;
+21. the CLI: the 1 << 16 band and the gate's matrix written with write_mtx
+   into a temporary directory, then the nine commands run in process as
+   ``python -m sparseharness_tpu_torch.cli <app>`` runs them (spmv and sssp
+   with -k sell on the band; the sweep, a stepped sssp, bfs from three
+   roots, pr, scc --full, eigenvector, cc, widest_path and just_parser -k
+   sell on the small matrix), every return code 0, every JSONL row parsed
+   and none gold-checked incorrect, the band's spmv and sssp rows and the
+   sweep's sell row correct, and one spmv -k sell as a subprocess, correct;
+22. sell kernel times at the 1 << 18 band: the whole dp, phase A alone and
+   the levels alone (median of five 20-call windows of CUDA events), the
+   plain versions, torch.mv on a CSR tensor of the same matrix and the
+   bounds; phase A's contrib stream and the dp held against the plain
+   version bit for bit.
 
 Then the kernels line, the nvidia-smi line and, last, the ok line.
 """
@@ -928,7 +956,8 @@ def ragged_kernel_times(torch, coo) -> dict:
             **time_windows(torch, lambda: sell2.sell2_dp_cuda(op, x, PLUS_TIMES)),
             plain_ms=time_ms(torch, lambda: sell2.dp_sell2_plain(
                 op, x, PLUS_TIMES, n_rows=coo.shape[0]), 3))
-        entry["stages_ms"] = stage_ms(torch, lambda: sell2.sell2_dp_cuda(op, x, PLUS_TIMES))
+        entry["stages"] = stage_ms(torch, lambda: sell2.sell2_dp_cuda(op, x, PLUS_TIMES),
+                                   r"sell2_\w+?_kernel")
         res[vd] = entry
         del op
     csr = csr_of(torch, coo)
@@ -937,10 +966,13 @@ def ragged_kernel_times(torch, coo) -> dict:
     return res
 
 
-def stage_ms(torch, fn, n: int = 20) -> dict:
-    """Device ms per call of each CUDA kernel that ``fn`` launches, by
-    kernel name, from torch.profiler over n calls; empty when the profiler
-    records no device time."""
+def stage_ms(torch, fn, pattern: str, n: int = 20) -> dict:
+    """{match: {"ms": device ms per launch, "launches": launches recorded}}
+    for each CUDA kernel that ``fn`` launches whose name matches
+    ``pattern``, from torch.profiler over n calls. Each total is divided by
+    the launches the profiler recorded, not by n, so calls it did not keep
+    do not dilute the mean. Empty when the profiler records no device
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -949,13 +981,285 @@ def stage_ms(torch, fn, n: int = 20) -> dict:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    out = {}
+    totals = {}
     for evt in prof.key_averages():
         us = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
-        if us and "sell2" in evt.key:
-            name = re.search(r"sell2_\w+?_kernel", evt.key)
-            out[name.group(0) if name else evt.key] = us / n / 1e3
-    return out
+        name = re.search(pattern, evt.key)
+        if us and name and evt.count:
+            us0, count0 = totals.get(name.group(0), (0.0, 0))
+            totals[name.group(0)] = (us0 + us, count0 + evt.count)
+    return {k: {"ms": us / count / 1e3, "launches": count} for k, (us, count) in totals.items()}
+
+
+# ------------------------------------------------------------------ sell
+
+SELL_N = 1 << 18       # the widest x that sell's XROWS_MAX admits: 262,144 columns
+SELL_BAND_N = 1 << 16  # the sell fixpoints' and the CLI's band (about 1,100 steps)
+
+
+def sell_cases(torch):
+    """(matrix, build keywords): the matrices of tests/test_torch_sell.py
+    and the gate's matrix."""
+    from sparseharness_tpu_torch.formats import coo_from_arrays, power_law_coo, random_coo
+
+    rng = np.random.default_rng(0)
+    hub_cols = rng.choice(600, 400, replace=False)
+    bg = random_coo(600, 600, 2000, seed=2)
+    hub = coo_from_arrays(np.r_[np.zeros(400, np.int64), bg.rows], np.r_[hub_cols, bg.cols],
+                          rng.uniform(0.1, 1.0, 400 + bg.nnz).astype(np.float32), (600, 600))
+    empty = coo_from_arrays([0, 0, 0, 5, 5], [3, 3, 7, 1, 200],
+                            np.float32([1, 2, 3, 4, 5]), (300, 300))
+    return [(power_law_coo(1500, 9000, seed=4), {}), (hub, {}),
+            (power_law_coo(2000, 30000, seed=5), {"slab_nnz": 8000}), (empty, {}),
+            (random_coo(1138, 1138, 4054, seed=0), {})]
+
+
+def sell_vs_plain(torch, coo, kw, names, errs) -> int:
+    """Both sell kernels (one sell_dp_cuda call) against dp_sell_plain on
+    one matrix: bit for bit for every semiring, plus_times included, and
+    the same bits on a second call. Returns the number of comparisons."""
+    from sparseharness_tpu_torch.ops import sell
+    from sparseharness_tpu_torch.semiring import get_semiring
+
+    rng = np.random.default_rng(15)
+    for name in names:
+        sr = get_semiring(name)
+        m = coo.with_values(coo.vals != 0) if sr.dtype == torch.bool else coo
+        op = sell.build_sell(m, sr, device="cuda", **kw)
+        x = random_x(torch, sr, m.shape[1], rng)
+        x2d = sell.pad_x2d(op, x, sr)
+        got = sell.sell_dp_cuda(op, x2d, sr)
+        check_same_bits(torch, f"sell {name}", got, sell.sell_dp_cuda(op, x2d, sr))
+        ref = sell.dp_sell_plain(op, x, sr, n_rows=m.shape[0])
+        if sr.dtype == torch.bool:
+            got = got > 0
+        elif not torch.equal(got.view(torch.int32), ref.view(torch.int32)):
+            raise AssertionError(f"sell {name}: kernel != plain in "
+                                 f"{int((got.view(torch.int32) != ref.view(torch.int32)).sum())}"
+                                 " rows")
+        err = check_kernel(torch, f"sell {name}", got, ref, None)
+        errs["sell_phase_a"] = max(errs["sell_phase_a"], err)
+        errs["sell_level"] = max(errs["sell_level"], err)
+        del op, x2d
+    return len(names)
+
+
+def sell_main_path(torch, coo, out):
+    """The 1 << 18 band through make_spmv_problem and benchmark_spmv with
+    variant="sell", gold-gated in f32. Returns the problem, whose operand
+    the kernel-time phase reuses."""
+    from sparseharness_tpu_torch.algorithms import make_spmv_problem
+    from sparseharness_tpu_torch.gold import Correctness, spmv_abs_bound, spmv_gold
+    from sparseharness_tpu_torch.harness import (
+        BenchmarkConfig, benchmark_spmv, device_hbm_bandwidth, variant_bytes,
+    )
+    from sparseharness_tpu_torch.semiring import PLUS_TIMES
+
+    bw = device_hbm_bandwidth(torch.cuda.get_device_name(0))
+    t0 = time.perf_counter()
+    prob = make_spmv_problem(coo, PLUS_TIMES, "sell", seed=6)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    x_np = prob.x0.cpu().numpy()
+    gold = spmv_gold(coo, x_np, prob.y.cpu().numpy(), PLUS_TIMES)
+    res = benchmark_spmv(prob, gold=gold, config=BenchmarkConfig(trials=5, launches_per_trial=20),
+                         matrix_name=f"banded{coo.shape[0]}", nnz=coo.nnz,
+                         gold_scale=spmv_abs_bound(coo, x_np))
+    if res.correctness is not Correctness.CORRECT:
+        raise AssertionError(f"sell on banded{coo.shape[0]}: {res.correctness}")
+    op = prob.operand
+    n_bytes = variant_bytes("sell", op, prob.x0.numel() * 4, coo.shape[0] * 4)
+    out.append({
+        "variant": "sell", "rows": coo.shape[0], "nnz": coo.nnz,
+        "correctness": res.correctness.value, "build_seconds": build_s,
+        "slabs": len(op.layouts), "max_levels": op.max_levels,
+        "phase_a_sublanes": int(op.lanesel.shape[0]),
+        "packed_slots": int(op.lanesel.numel() + op.idx.numel()),
+        "median_ms": res.median_ns * 1e-6, "best_ms": res.best_ns * 1e-6,
+        "gnnz_per_s": res.gnnz_per_s, "bytes_per_s": n_bytes / (res.median_ns * 1e-9),
+        "bound_ms": n_bytes / bw * 1e3, "roofline_frac": res.roofline_frac,
+    })
+    return prob
+
+
+def sell_fixpoints(torch, band, out) -> None:
+    """sssp and bfs with variant="sell" on the 1 << 16 band: one phase-A
+    launch a step. Certificates as phase 3's, with the plain band dp."""
+    from sparseharness_tpu_torch.algorithms import bfs, sssp
+    from sparseharness_tpu_torch.ops import LAUNCHES, build_operand, dp_bsr_band_plain, fold_dp
+    from sparseharness_tpu_torch.semiring import MIN_PLUS
+
+    n = band.shape[0]
+
+    def run(app):
+        before = LAUNCHES["sell_phase_a"]
+        t0 = time.perf_counter()
+        r = app(band, 0, variant="sell")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if LAUNCHES["sell_phase_a"] - before != r.iterations:
+            raise AssertionError(f"{app.__name__}: {LAUNCHES['sell_phase_a'] - before} sell "
+                                 f"phase-A launches for {r.iterations} steps")
+        return r, dt
+
+    r, dt = run(sssp)
+    op = build_operand(band, MIN_PLUS, "bsr_band")
+    again = torch.minimum(r.x, fold_dp(dp_bsr_band_plain(op, r.x, MIN_PLUS, n_rows=n)[:n], None,
+                                       MIN_PLUS, None, None))
+    cert = bool(r.converged and float(r.x[0]) == 0.0 and torch.equal(again, r.x))
+    del op, again
+    out.append({"app": "sssp", "variant": "sell", "rows": n, "iterations": r.iterations,
+                "converged": r.converged, "seconds": dt,
+                "certificate": "x[0] == 0 and min(x, A⊗x) == x", "certified": cert})
+    if not cert:
+        raise AssertionError("sell sssp certificate failed")
+    r, dt = run(bfs)
+    want = torch.from_numpy(((np.arange(n) + BAND - 1) // BAND).astype(np.int32)).cuda()
+    cert = bool(r.converged and bool(r.x.all()) and torch.equal(r.aux, want))
+    out.append({"app": "bfs", "variant": "sell", "rows": n, "iterations": r.iterations,
+                "converged": r.converged, "seconds": dt,
+                "certificate": f"levels == ceil(i / {BAND})", "certified": cert})
+    if not cert:
+        raise AssertionError("sell bfs certificate failed")
+
+
+def cli_path(torch, band, small, out) -> None:
+    """The nine CLI commands in process, as python -m
+    sparseharness_tpu_torch.cli runs them, on .mtx files written by the
+    port's write_mtx; then spmv -k sell as a subprocess. Every return code
+    must be 0, every JSONL row must parse, no row may be gold-checked
+    incorrect, and the rows of spmv -k sell and sssp -k sell on the band,
+    the sweep's sell row on the small matrix and the subprocess must read
+    correct."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+
+    from sparseharness_tpu_torch.cli import main as cli
+    from sparseharness_tpu_torch.formats import write_mtx
+
+    with tempfile.TemporaryDirectory() as d:
+        band_path, small_path = os.path.join(d, "band.mtx"), os.path.join(d, "small.mtx")
+        jsonl, sql = os.path.join(d, "out.jsonl"), os.path.join(d, "out.sql")
+        t0 = time.perf_counter()
+        write_mtx(band_path, band)
+        write_mtx(small_path, small)
+        out.append({"write_mtx_seconds": time.perf_counter() - t0})
+        sink = ["--jsonl", jsonl, "--sql", sql]
+        runs = [("spmv", ["-m", band_path, "-k", "sell", "-n", "3"] + sink),
+                ("sssp", ["-m", band_path, "-k", "sell", "-n", "2"] + sink),
+                ("spmv", ["-m", small_path, "--sweep", "-n", "2"] + sink),
+                ("sssp", ["-m", small_path, "--stepped", "-k", "auto", "-n", "2"] + sink),
+                ("bfs", ["-m", small_path, "--roots", "0,5,9", "-n", "2"] + sink),
+                ("pr", ["-m", small_path, "-n", "2"] + sink),
+                ("scc", ["-m", small_path, "--full", "-n", "2"] + sink),
+                ("eigenvector", ["-m", small_path, "-n", "2"] + sink),
+                ("cc", ["-m", small_path, "-n", "2"] + sink),
+                ("widest_path", ["-m", small_path, "-k", "auto", "-n", "2"] + sink),
+                ("just_parser", ["-m", small_path, "-k", "sell", "-n", "2"])]
+        for app, argv in runs:
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.COMMANDS[app](argv)
+            torch.cuda.synchronize()
+            lines = buf.getvalue().strip().splitlines()
+            out.append({"app": app, "args": " ".join(os.path.basename(a) for a in argv
+                                                     if not a.endswith((".jsonl", ".sql"))),
+                        "rc": rc, "seconds": time.perf_counter() - t0,
+                        "last_line": lines[-1] if lines else ""})
+            if rc != 0:
+                raise AssertionError(f"cli {app} {argv}: rc {rc}\n{buf.getvalue()}")
+        with open(jsonl) as f:
+            rows = [json.loads(line) for line in f]
+        with open(sql) as f:
+            n_sql = sum(1 for line in f if line.startswith("INSERT INTO"))
+        if len(rows) != n_sql or not rows:
+            raise AssertionError(f"{len(rows)} JSONL rows against {n_sql} SQL rows")
+        wrong = [r for r in rows if r["correctness"] in ("incorrect", "bad_length")]
+        if wrong:
+            raise AssertionError(f"cli rows gold-checked wrong: {wrong}")
+        for label, path, kernel in (("spmv -k sell on the band", band_path, "sell"),
+                                    ("sssp -k sell on the band", band_path, "sssp:sell"),
+                                    ("the sweep's sell point", small_path, "sell")):
+            mine = [r["correctness"] for r in rows
+                    if r["matrix"] == path and r["kernel"] == kernel]
+            if not mine or set(mine) != {"correct"}:
+                raise AssertionError(f"cli {label}: correctness {mine}")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "sparseharness_tpu_torch.cli", "spmv", "-m", small_path,
+             "-k", "sell", "-n", "2"], cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600)
+        out.append({"subprocess": "python -m sparseharness_tpu_torch.cli spmv -k sell -n 2",
+                    "rc": proc.returncode, "seconds": time.perf_counter() - t0,
+                    "last_line": (proc.stdout.strip().splitlines() or [""])[-1]})
+        if proc.returncode != 0 or not out[-1]["last_line"].endswith(", correct"):
+            raise AssertionError(f"cli subprocess: rc {proc.returncode}, "
+                                 f"{out[-1]['last_line']!r}\n{proc.stderr}")
+        out.append({"jsonl_rows": len(rows), "sql_rows": n_sql,
+                    "kernels": sorted({r["kernel"] for r in rows})})
+
+
+def sell_kernel_times(torch, op, coo, errs) -> dict:
+    """The sell kernels at the 1 << 18 band: the whole dp, phase A alone and
+    the levels alone (CUDA events), their plain versions, torch.mv on a CSR tensor of the same
+    matrix, and the bounds. Whole dp: the operand's arrays, x and the output
+    (variant_bytes) and 2 ops per nonzero. Phase A as a function: lanesel,
+    vals, blocksel and x in, the contrib stream out, one ⊗ per nonzero. The
+    levels: the contrib stream and every idx array in, the dp out, one ⊕
+    per nonzero but the first of each row. Phase A's contrib stream and the
+    dp are held against the plain version bit for bit first."""
+    from sparseharness_tpu_torch.harness import device_hbm_bandwidth, variant_bytes
+    from sparseharness_tpu_torch.ops import sell
+    from sparseharness_tpu_torch.semiring import PLUS_TIMES
+
+    bw = device_hbm_bandwidth(torch.cuda.get_device_name(0))
+    n = coo.shape[0]
+    sr = PLUS_TIMES
+    x = random_x(torch, sr, coo.shape[1], np.random.default_rng(16))
+    x2d = sell.pad_x2d(op, x, sr)
+    work = torch.empty((op.work_rows, 128), dtype=torch.float32, device="cuda")
+    dp = torch.empty(op.n_pad, dtype=torch.float32, device="cuda")
+    sell.phase_a_cuda(op, x2d, sr, work)
+    contribs = [sell.phase_a_plain(slab, x2d, sr) for slab in op.slabs]
+    ta_rows = op.lanesel.shape[0]
+    errs["sell_phase_a"] = max(errs["sell_phase_a"], check_kernel(
+        torch, "sell phase A at full width", work[:ta_rows], torch.cat(contribs), None))
+    sell.levels_cuda(op, sr, work, dp)
+    errs["sell_level"] = max(errs["sell_level"], check_kernel(
+        torch, "sell dp at full width", dp, sell.dp_sell_plain(op, x, sr, n_rows=n), None))
+
+    def plain_levels():
+        for slab, lay, src in zip(op.slabs, op.layouts, contribs):
+            for li, level in enumerate(lay.levels):
+                src = sell.level_plain(src, slab[f"idx{li}"], level, sr)
+
+    f32 = 4
+    contrib_bytes = ta_rows * 128 * f32
+    rows_used = int(np.count_nonzero(np.bincount(coo.rows, minlength=n)))
+    res = {
+        "dp": {**bound(variant_bytes("sell", op, x.numel() * f32, n * f32), 2 * coo.nnz, bw),
+               **time_windows(torch, lambda: sell.sell_dp_cuda(op, x2d, sr)),
+               "plain_ms": time_ms(torch, lambda: sell.dp_sell_plain(op, x, sr, n_rows=n), 3)},
+        "sell_phase_a": {
+            **bound(tensor_bytes(op.lanesel, op.vals, op.blocksel, x2d) + contrib_bytes,
+                    coo.nnz, bw),
+            **time_windows(torch, lambda: sell.phase_a_cuda(op, x2d, sr, work)),
+            "plain_ms": time_ms(torch, lambda: [sell.phase_a_plain(s, x2d, sr)
+                                                for s in op.slabs], 3)},
+        "sell_level": {
+            **bound(tensor_bytes(op.idx) + contrib_bytes + op.n_pad * f32,
+                    coo.nnz - rows_used, bw),
+            **time_windows(torch, lambda: sell.levels_cuda(op, sr, work, dp)),
+            "plain_ms": time_ms(torch, plain_levels, 3)},
+        "depth_rows": list(op.depth_rows), "work_rows": op.work_rows,
+    }
+    csr = csr_of(torch, coo)
+    res["library_ms"] = time_ms(torch, lambda: torch.mv(csr, x), 20)
+    del csr, work, dp, contribs
+    return res
 
 
 # ------------------------------------------------------------------ SpMM
@@ -1544,6 +1848,42 @@ def main() -> int:
         stimes = spmm_kernel_times(torch, coo, bcoo)
         f.update(card=card, nvidia_smi=smi, times=stimes)
 
+    lerrs = {"sell_phase_a": 0.0, "sell_level": 0.0}
+    with Phase("sell_kernel_vs_plain_small") as f:
+        f["comparisons"] = sum(sell_vs_plain(torch, m, kw, SEMIRINGS, lerrs)
+                               for m, kw in sell_cases(torch))
+    band16 = banded_coo(SELL_BAND_N, BAND, seed=1)
+    with Phase("sell_kernel_vs_plain_band") as f:
+        t0 = time.perf_counter()
+        f["comparisons"] = sell_vs_plain(torch, band16, {}, ("min_plus", "or_and"), lerrs)
+        f.update(rows=band16.shape[0], nnz=band16.nnz, build_and_check_seconds=(
+            time.perf_counter() - t0), max_abs_err=lerrs)
+    sell_coo = banded_coo(SELL_N, BAND, seed=1)
+
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    sell_lines, sapp_lines, cli_lines = [], [], []
+    with Phase("main_path_sell_spmv") as f:
+        sell_prob = sell_main_path(torch, sell_coo, sell_lines)
+        f.update(card=card, nvidia_smi=smi, runs=sell_lines)
+    with Phase("main_path_sell_fixpoints") as f:
+        sell_fixpoints(torch, band16, sapp_lines)
+        f.update(card=card, nvidia_smi=smi, runs=sapp_lines)
+    with Phase("main_path_cli") as f:
+        cli_path(torch, band16, random_coo(1138, 1138, 4054, seed=0), cli_lines)
+        f.update(card=card, nvidia_smi=smi, runs=cli_lines)
+    llaunches = dict(LAUNCHES)
+    emit({"phase": "main_path_sell_launches", "launches": llaunches})
+    for kernel in ("sell_phase_a", "sell_level"):
+        if llaunches[kernel] <= 0:
+            raise AssertionError(f"the {kernel} kernel never launched on the sell path")
+        launches[kernel] = llaunches[kernel]
+
+    with Phase("sell_kernel_times") as f:
+        ltimes = sell_kernel_times(torch, sell_prob.operand, sell_coo, lerrs)
+        f.update(card=card, nvidia_smi=smi, times=ltimes, max_abs_err=lerrs)
+    del sell_prob
+
     f32 = times["float32"]
     replaces = {"staged": "sparseharness_tpu/ops/pallas_bsr_band.py:180",
                 "streamed": "sparseharness_tpu/ops/pallas_bsr_band.py:259"}
@@ -1594,6 +1934,15 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": serrs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+        })
+    for name, line in (("sell_phase_a", 330), ("sell_level", 361)):
+        t = ltimes[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "sparseharness_tpu_torch/ops/csrc/sell.cu",
+            "replaces": f"sparseharness_tpu/ops/pallas_sell.py:{line}",
+            "launches": launches[name], "max_abs_err": lerrs[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": ltimes["library_ms"],
         })
     emit({"kernels": kernels})
     print(nvidia_smi())

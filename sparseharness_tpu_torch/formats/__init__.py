@@ -21,8 +21,13 @@ from sparseharness_tpu_torch.formats.mtx import (  # noqa: F401
     MtxHeader,
     read_mtx,
     read_mtx_header,
+    write_mtx,
 )
-from sparseharness_tpu_torch.formats.preprocess import pagerank_normalise  # noqa: F401
+from sparseharness_tpu_torch.formats.preprocess import (  # noqa: F401
+    ensure_self_loops,
+    pagerank_normalise,
+    scc_normalise,
+)
 from sparseharness_tpu_torch.formats.reorder import (  # noqa: F401
     bandwidth,
     inverse_permutation,

@@ -1,4 +1,4 @@
-"""MatrixMarket coordinate-format reader (NumPy parse).
+"""MatrixMarket coordinate-format I/O (NumPy parse and write).
 
 - banner: ``%%MatrixMarket matrix coordinate {real|integer|pattern} {general|symmetric|skew-symmetric}``
 - ``%`` comment lines, then ``rows cols nnz``, then one entry per line
@@ -133,3 +133,70 @@ def _parse_entries_numpy(path: str, header: MtxHeader):
     ):
         raise MtxFormatError("entry index out of bounds")
     return rows, cols, vals
+
+
+def _mirror_key(rows, cols, vals):
+    """The entries sorted by (row, col, value as float64): an exact
+    multiset key for the symmetry check of write_mtx."""
+    order = np.lexsort((np.asarray(vals, np.float64),
+                        np.asarray(cols), np.asarray(rows)))
+    return (np.asarray(rows)[order], np.asarray(cols)[order],
+            np.asarray(vals, np.float64)[order])
+
+
+def write_mtx(path: str, coo: COO, field: str = "real",
+              symmetry: str = "general") -> None:
+    """Write a COO as a MatrixMarket coordinate file, the inverse of
+    :func:`read_mtx`.
+
+    ``symmetry="symmetric"`` / ``"skew-symmetric"`` stores only the lower
+    triangle (row ≥ col; row > col for skew, whose zero diagonal stays
+    implicit). The dropped upper triangle must mirror the kept one exactly
+    (negated for skew), else ``ValueError``, so read_mtx's expansion gives
+    the input back. Values print with enough digits to round-trip: 9
+    significant for float32, 17 for wider types."""
+    if field not in ("real", "integer", "pattern"):
+        raise ValueError(f"unsupported field {field!r}")
+    if symmetry not in ("general", "symmetric", "skew-symmetric"):
+        raise ValueError(f"unsupported symmetry {symmetry!r}")
+    rows = np.asarray(coo.rows)
+    cols = np.asarray(coo.cols)
+    vals = np.asarray(coo.vals)
+    if symmetry != "general":
+        if coo.shape[0] != coo.shape[1]:
+            raise ValueError(f"{symmetry} requires a square matrix")
+        diag = rows == cols
+        lower = rows > cols
+        upper = rows < cols
+        sign = -1.0 if symmetry == "skew-symmetric" else 1.0
+        lo = _mirror_key(rows[lower], cols[lower], vals[lower])
+        up = _mirror_key(cols[upper], rows[upper], sign * vals[upper])
+        if not (lo[0].shape == up[0].shape
+                and all(np.array_equal(a, b) for a, b in zip(lo, up))):
+            raise ValueError(
+                f"matrix is not {symmetry}: upper triangle does not mirror "
+                "the lower (write with symmetry='general' instead)")
+        if symmetry == "skew-symmetric":
+            if np.any(diag & (vals.astype(np.float64) != 0.0)):
+                raise ValueError("skew-symmetric matrices have a zero "
+                                 "diagonal; found nonzero diagonal entries")
+            keep = lower
+        else:
+            keep = lower | diag
+        rows, cols, vals = rows[keep], cols[keep], vals[keep]
+    vfmt = "%.9g" if vals.dtype == np.float32 else "%.17g"
+    with open(path, "w") as f:
+        f.write(f"%%MatrixMarket matrix coordinate {field} {symmetry}\n")
+        f.write(f"{coo.shape[0]} {coo.shape[1]} {len(vals)}\n")
+        if field == "pattern":
+            body = np.column_stack([rows + 1, cols + 1])
+            np.savetxt(f, body, fmt="%d")
+        elif field == "integer":
+            body = np.column_stack([rows + 1, cols + 1,
+                                    vals.astype(np.int64)])
+            np.savetxt(f, body, fmt="%d")
+        else:
+            body = np.column_stack([(rows + 1).astype(np.float64),
+                                    (cols + 1).astype(np.float64),
+                                    vals.astype(np.float64)])
+            np.savetxt(f, body, fmt=["%d", "%d", vfmt])

@@ -54,6 +54,9 @@ class COO:
             raise ValueError(f"{len(vals)} values for {self.nnz} entries")
         return COO(self.rows, self.cols, vals, self.shape)
 
+    def transpose(self) -> "COO":
+        return COO(self.cols, self.rows, self.vals, (self.shape[1], self.shape[0]))
+
     def to_csr(self) -> "CSR":
         s = self.sorted_by_row()
         indptr = np.zeros(self.shape[0] + 1, dtype=np.int32)

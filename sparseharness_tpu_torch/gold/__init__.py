@@ -4,7 +4,10 @@ from sparseharness_tpu_torch.gold.algorithms import (  # noqa: F401
     bfs_levels_gold,
     bfs_reach_gold,
     connected_components_gold,
+    eigenvector_gold,
     pagerank_gold,
+    scc_gold,
+    scc_labels_gold,
     sssp_gold,
     widest_path_gold,
 )

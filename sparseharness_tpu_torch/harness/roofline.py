@@ -60,9 +60,16 @@ def variant_bytes(variant: str, operand, x_bytes: int, out_bytes: int) -> int:
     before its TPU kernel; the CUDA kernel reads x where it lies, so one
     pass is the least traffic for the same work. The run table that the
     CUDA kernel derives from the slabs is its own bookkeeping and not part
-    of that least traffic."""
+    of that least traffic.
+
+    ``sell``: every array of its slabs (lanesel, vals, blocksel and each
+    level's idx) once, x once and the output once. The contrib stream and
+    the level outputs are intermediates that a fused kernel need not write,
+    and the launch table is the kernels' own bookkeeping."""
     if variant == "sell2":
         operand = [operand.slabs, operand.piece_owner, operand.virt_blocks]
+    elif variant == "sell":
+        operand = operand.slabs
     tensors = _operand_tensors(operand)
     operand_bytes = sum(t.numel() * t.element_size() for t in tensors)
     itemsize = max((t.element_size() for t in tensors), default=4)

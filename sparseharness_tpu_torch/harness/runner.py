@@ -10,7 +10,7 @@
 - correctness against a gold, and the liveness warning for a launch that
   changed nothing;
 - a MEDIAN_RESULT row per configuration and MULTI_ITERATION_SUM rows for
-  the fixpoint apps.
+  the fixpoint apps; the host-stepped form adds a RAW_RESULT row per step.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from typing import Any, Callable, List, Optional
 import numpy as np
 import torch
 
+from sparseharness_tpu_torch.algorithms.fixpoint import run_fixpoint_stepped
 from sparseharness_tpu_torch.gold.check import Correctness, check_result
 from sparseharness_tpu_torch.harness.roofline import roofline_seconds
 from sparseharness_tpu_torch.harness.stats import BenchRecord, Statistic, median_record
@@ -164,6 +165,81 @@ def benchmark_spmv(
         gnnz_per_s=nnz / (med.time_ns * 1e-9) / 1e9,
         roofline_frac=med.roofline_frac,
         device=dev,
+    )
+
+
+def benchmark_fixpoint_stepped(
+    components,
+    gold: Optional[np.ndarray] = None,
+    config: BenchmarkConfig = BenchmarkConfig(),
+    matrix_name: str = "",
+    kernel_name: str = "fixpoint",
+    exact: bool = False,
+) -> BenchmarkResult:
+    """Host-stepped fixpoint: one step and one convergence-flag readback per
+    iteration, a RAW_RESULT row per step and a MULTI_ITERATION_SUM row per
+    trial, as the reference's per-iteration records. Each step is timed on
+    the host clock up to its flag readback, which waits for the step's
+    kernels. One untimed warm-up step runs first; a trial that passes the
+    timeout stops mid-solve and ends the trials; the cap then ratchets to
+    twice the last trial's time."""
+    device = components.x0.device
+    dev = device_name(device)
+    records: List[BenchRecord] = []
+    correctness = Correctness.NOT_CHECKED
+    total_iters = 0
+    with ScopedTimer("warmup", "benchmark_fixpoint_stepped"):
+        for _ in run_fixpoint_stepped(components.step, components.x0,
+                                      convergence=components.convergence, max_iter=1):
+            break
+    timeout = config.timeout_s
+    for trial in range(config.trials):
+        t_total, it, x, conv, timed_out = 0.0, 0, None, False, False
+        gen = run_fixpoint_stepped(components.step, components.x0,
+                                   convergence=components.convergence,
+                                   max_iter=components.limit)
+        t_prev = time.perf_counter()
+        for x, it, conv in gen:
+            now = time.perf_counter()
+            dt, t_prev = now - t_prev, now
+            t_total += dt
+            records.append(BenchRecord(
+                time_ns=dt * 1e9, correctness=Correctness.NOT_CHECKED,
+                kernel=kernel_name, geometry="-", trial=trial, iteration=it,
+                statistic=Statistic.RAW_RESULT, matrix=matrix_name,
+                experiment_id=config.experiment_id, device=dev,
+            ))
+            if t_total > timeout:
+                timed_out = True
+                log.info("stepped trial %d exceeded timeout %.3fs at iteration %d; "
+                         "stopping", trial, timeout, it)
+                break
+        total_iters = it
+        if (conv and it <= 1 and x is not None
+                and np.array_equal(x.cpu().numpy(), components.x0.cpu().numpy())):
+            log.warning("kernel has probably failed: converged at iteration %d with "
+                        "x unchanged from x0", it)
+        if config.adaptive_timeout and not timed_out:
+            timeout = min(timeout, max(2.0 * t_total, 1e-3))
+        if trial == 0 and gold is not None and x is not None:
+            final = x.cpu().numpy()
+            if getattr(components, "unpermute", None) is not None:
+                final = components.unpermute(final)
+            correctness = check_result(final, gold, delta=config.delta, exact=exact)
+        records.append(BenchRecord(
+            time_ns=t_total * 1e9, correctness=correctness, kernel=kernel_name,
+            geometry="-", trial=trial, iteration=it,
+            statistic=Statistic.MULTI_ITERATION_SUM, matrix=matrix_name,
+            experiment_id=config.experiment_id, device=dev,
+        ))
+        if timed_out:
+            break  # every later trial would stop at the same cap
+    sums = sorted(r.time_ns for r in records
+                  if r.statistic is Statistic.MULTI_ITERATION_SUM)
+    return BenchmarkResult(
+        records=records, median_ns=sums[len(sums) // 2] if sums else 0.0,
+        best_ns=sums[0] if sums else 0.0, correctness=correctness, gnnz_per_s=0.0,
+        roofline_frac=None, device=dev, iterations=total_iters,
     )
 
 

@@ -47,6 +47,12 @@ from sparseharness_tpu_torch.ops.bsr_band import (  # noqa: F401
     dp_bsr_band,
     dp_bsr_band_plain,
 )
+from sparseharness_tpu_torch.ops.sell import (  # noqa: F401
+    SellOperand,
+    build_sell,
+    dp_sell,
+    dp_sell_plain,
+)
 from sparseharness_tpu_torch.ops.sell2 import (  # noqa: F401
     Sell2Operand,
     build_sell2,

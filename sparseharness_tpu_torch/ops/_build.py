@@ -37,7 +37,8 @@ _LOADED: Dict[str, ctypes.CDLL] = {}
 #: shows which kernels its work went through
 LAUNCHES: Dict[str, int] = {"staged": 0, "streamed": 0, "bsr_fused": 0,
                             "bsr_ell": 0, "bsr_pallas": 0, "sell2": 0,
-                            "spmm_band": 0, "spmm_tiles": 0}
+                            "spmm_band": 0, "spmm_tiles": 0, "sell_phase_a": 0,
+                            "sell_level": 0}
 
 #: semiring codes of the C interface, as csrc/semiring.cuh:SrCode
 SR_CODES = {"plus_times": 0, "min_plus": 1, "or_and": 2, "max_min": 3,

@@ -17,6 +17,7 @@ from sparseharness_tpu_torch.ops.bsr_band import BsrBandOperand
 from sparseharness_tpu_torch.ops.bsr_ell import BsrEllOperand
 from sparseharness_tpu_torch.ops.bsr_fused import BsrFusedOperand
 from sparseharness_tpu_torch.ops.dia import DiaOperand
+from sparseharness_tpu_torch.ops import sell
 from sparseharness_tpu_torch.ops.sell2 import Sell2Operand, _SlabLayout, assemble
 from sparseharness_tpu_torch.ops.torch_ops import CooOperand, DenseOperand, EllOperand
 from sparseharness_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -101,3 +102,18 @@ def sell2_operand_from_numpy(slabs, layouts, n_chunks: int, n_rows: int, base_pa
         n_chunks, n_rows, base_pad,
         None if piece_owner is None else _tensor(piece_owner, device),
         None if virt_blocks is None else _tensor(virt_blocks, device), device)
+
+
+def sell_operand_from_numpy(slabs, layouts, xrows: int, n_rows: int,
+                            device: DeviceLike = None) -> sell.SellOperand:
+    """The sell operand from its per-slab arrays (mappings of lanesel, vals,
+    blocksel and idx{li} per level) and layouts, as the JAX package's
+    SellOperand holds them. The launch tables are derived from the layouts,
+    as build_sell derives them."""
+    lays = tuple(sell._SlabLayout(
+        int(lay.row0), int(lay.rows), int(lay.t_a),
+        tuple(sell._LevelLayout(tuple(tuple(int(v) for v in r) for r in lv.regions),
+                                int(lv.t_src), int(lv.d_out), bool(lv.final))
+              for lv in lay.levels)) for lay in layouts)
+    return sell.assemble([{k: np.asarray(v) for k, v in s.items()} for s in slabs], lays,
+                         xrows, n_rows, resolve_device(device))

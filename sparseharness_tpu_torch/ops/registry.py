@@ -13,7 +13,9 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from sparseharness_tpu_torch.formats.sparse import COO
-from sparseharness_tpu_torch.ops import bsr, bsr_band, bsr_ell, bsr_fused, dia, sell2, torch_ops
+from sparseharness_tpu_torch.ops import (
+    bsr, bsr_band, bsr_ell, bsr_fused, dia, sell, sell2, torch_ops,
+)
 from sparseharness_tpu_torch.semiring import Semiring
 from sparseharness_tpu_torch.utils.device import DeviceLike
 
@@ -185,6 +187,17 @@ register_variant(KernelVariant(
     dp=bsr.dp_bsr,
     description="Gen-1 BSR: slabbed (bm, bn) tiles, a CUDA warp per row "
                 "walking its tile run; the JAX package's name kept",
+))
+
+register_variant(KernelVariant(
+    name="sell",
+    build=lambda coo, sr, g, device: sell.build_sell(coo, sr, device=device),
+    dp=sell.dp_sell,
+    description="The JAX package's gen-5 design record: a phase-A contrib "
+                "stream packed column-block-major, then gather-reduce "
+                "levels; two CUDA kernels, one phase-A launch and one "
+                "launch per level depth over every row slab. Not in the "
+                "auto chain, as in JAX",
 ))
 
 register_variant(KernelVariant(

@@ -167,3 +167,25 @@ def test_benchmark_fixpoint_on_cpu():
                              config=BenchmarkConfig(trials=2))
     assert res.correctness is Correctness.CORRECT
     assert res.iterations == solve().iterations > 1
+
+
+@pytest.mark.parametrize("case", ["graph", "negative", "duplicates_and_empty_rows", "capped"])
+def test_sssp_gold_matches_jax(case):
+    """The port's Bellman-Ford gold (one reduceat a sweep) equals the JAX
+    package's (np.minimum.at) bit for bit."""
+    from sparseharness_tpu.gold import sssp_gold as jax_sssp_gold
+
+    kw = {"max_iter": 3} if case == "capped" else {}
+    if case == "duplicates_and_empty_rows":
+        make = lambda m: m.coo_from_arrays(  # noqa: E731
+            [0, 0, 0, 5, 5, 7], [3, 3, 7, 0, 5, 5],
+            np.float32([1, 0.5, 3, 4, 5, 2]), (9, 9))
+    elif case == "negative":
+        make = lambda m: m.random_graph_coo(150, 3.0, seed=2).with_values(  # noqa: E731
+            m.random_graph_coo(150, 3.0, seed=2).vals - 0.3)
+    else:
+        make = lambda m: m.random_graph_coo(300, 3.0, seed=1)  # noqa: E731
+    want = jax_sssp_gold(make(jf), 0, **kw)
+    got = sssp_gold(make(tf), 0, **kw)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)

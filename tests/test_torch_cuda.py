@@ -1,9 +1,9 @@
 """Kernel tests that need an NVIDIA GPU and nvcc (marker ``cuda``): the
 bsr_band kernel's staged and streamed paths, the strip kernel of bsr_fused
 and bsr_ell, the gen-1 tile kernel of bsr_pallas, the sell2 panel kernel
-and the two SpMM kernels (spmm_band, spmm_tiles), against their plain
-versions on the same CUDA tensors, and spmv, spmm and multi_sssp launching
-each kernel. They
+the two SpMM kernels (spmm_band, spmm_tiles) and the sell phase-A and
+level kernels, against their plain versions on the same CUDA tensors, and
+spmv, spmm and multi_sssp launching each kernel. They
 skip without a card; run them on one with
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -16,9 +16,11 @@ import numpy as np
 import pytest
 import torch
 
-from sparseharness_tpu_torch.formats import banded_coo, block_random_coo, random_coo
+from sparseharness_tpu_torch.formats import (
+    banded_coo, block_random_coo, coo_from_arrays, power_law_coo, random_coo,
+)
 from sparseharness_tpu_torch.ops import (
-    LAUNCHES, bsr, bsr_band, bsr_ell, bsr_fused, sell2, spmm, spmm_tiles, spmv,
+    LAUNCHES, bsr, bsr_band, bsr_ell, bsr_fused, sell, sell2, spmm, spmm_tiles, spmv,
 )
 from sparseharness_tpu_torch.semiring import REGISTRY, PLUS_TIMES, get_semiring
 
@@ -322,3 +324,58 @@ def test_multi_source_launches_once_per_step(app, cuda):
     ref = getattr(ta, app)(coo, roots, variant="bsr_band", device="cpu")
     assert (r.iterations, r.converged) == (ref.iterations, ref.converged)
     assert torch.equal(r.x.cpu(), ref.x)
+
+
+def _sell_matrices():
+    """The cases of tests/test_torch_sell.py: a power-law matrix, a hub row
+    that chains through an extra level, several slabs, and empty rows with
+    a duplicate."""
+    rng = np.random.default_rng(0)
+    bg = random_coo(600, 600, 2000, seed=2)
+    hub = coo_from_arrays(np.r_[np.zeros(400, np.int64), bg.rows],
+                          np.r_[rng.choice(600, 400, replace=False), bg.cols],
+                          rng.uniform(0.1, 1.0, 400 + bg.nnz).astype(np.float32), (600, 600))
+    empty = coo_from_arrays([0, 0, 0, 5, 5], [3, 3, 7, 1, 200],
+                            np.float32([1, 2, 3, 4, 5]), (300, 300))
+    return [(power_law_coo(1500, 9000, seed=4), {}), (hub, {}),
+            (power_law_coo(2000, 30000, seed=5), {"slab_nnz": 8000}), (empty, {})]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(REGISTRY))
+def test_sell_kernels_match_plain(name, cuda):
+    """Both sell kernels against the plain dp: bit for bit for every
+    semiring, plus_times included, and the same bits on a second call."""
+    sr = get_semiring(name)
+    for coo, kw in _sell_matrices():
+        if sr.dtype == torch.bool:
+            coo = coo.with_values(coo.vals != 0)
+        op = sell.build_sell(coo, sr, device=cuda, **kw)
+        x = _x(sr, coo.shape[1], seed=8).to(cuda)
+        x2d = sell.pad_x2d(op, x, sr)
+        got = sell.sell_dp_cuda(op, x2d, sr)
+        again = sell.sell_dp_cuda(op, x2d, sr)
+        torch.cuda.synchronize()
+        ref = sell.dp_sell_plain(op, x, sr, n_rows=coo.shape[0])
+        if sr.dtype == torch.bool:
+            assert torch.equal(got > 0, ref)
+        else:
+            assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_spmv_sell_launches_one_phase_a_and_one_level_per_depth(cuda):
+    coo = power_law_coo(2000, 30000, seed=5)
+    op = sell.build_sell(coo, PLUS_TIMES, slab_nnz=8000, device=cuda)
+    assert len(op.layouts) >= 2 and op.max_levels >= 2
+    x = _x(PLUS_TIMES, coo.shape[1], seed=4).to(cuda)
+    before = dict(LAUNCHES)
+    y = spmv(op, x, sr=PLUS_TIMES, variant="sell", n_rows=coo.shape[0])
+    torch.cuda.synchronize()
+    assert LAUNCHES["sell_phase_a"] == before["sell_phase_a"] + 1
+    assert LAUNCHES["sell_level"] == before["sell_level"] + op.max_levels
+    assert sum(LAUNCHES.values()) == sum(before.values()) + 1 + op.max_levels
+    cpu_op = sell.build_sell(coo, PLUS_TIMES, slab_nnz=8000, device="cpu")
+    ref = spmv(cpu_op, x.cpu(), sr=PLUS_TIMES, variant="sell", n_rows=coo.shape[0])
+    assert torch.equal(y.cpu(), ref)

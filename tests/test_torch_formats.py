@@ -108,3 +108,63 @@ def test_to_ell_and_pagerank_normalise_match_jax():
     for name in ("cols", "vals", "mask", "lengths"):
         np.testing.assert_array_equal(getattr(ea, name), getattr(eb, name))
     _same_coo(tf.pagerank_normalise(a, 0.85), jf.pagerank_normalise(b, 0.85))
+
+
+def test_transpose_scc_normalise_and_self_loops_match_jax():
+    from sparseharness_tpu.formats.preprocess import ensure_self_loops as jax_self_loops
+
+    for make in (lambda m: m.random_graph_coo(150, 4.0, seed=3),
+                 lambda m: m.coo_from_arrays([0, 2, 2, 4], [0, 1, 2, 0],
+                                             np.float32([1, 2, 3, 4]), (5, 7))):
+        a, b = make(tf), make(jf)
+        _same_coo(a.transpose(), b.transpose())
+        assert a.transpose().shape == (a.shape[1], a.shape[0])
+        _same_coo(tf.scc_normalise(a), jf.scc_normalise(b))
+        assert tf.scc_normalise(a).vals.dtype == np.int32
+        if a.shape[0] == a.shape[1]:
+            for value in (1.0, 0.25):
+                _same_coo(tf.ensure_self_loops(a, value), jax_self_loops(b, value))
+    full = tf.banded_coo(50, 2, seed=1)  # every diagonal entry present
+    assert tf.ensure_self_loops(full) is full
+
+
+_WRITE_CASES = {
+    "real": (lambda m: m.random_coo(60, 70, 300, seed=3), {}),
+    "real_f64": (lambda m: m.banded_coo(40, 3, dtype=np.float64, seed=9), {}),
+    "integer": (lambda m: m.coo_from_arrays([0, 1, 2], [2, 0, 1], np.float32([3, -7, 12]),
+                                            (3, 3)), {"field": "integer"}),
+    "pattern": (lambda m: m.random_graph_coo(40, 2.0, seed=2), {"field": "pattern"}),
+    "symmetric": (lambda m: m.coo_from_arrays([0, 1, 0, 2, 1, 2], [0, 0, 1, 1, 2, 2],
+                                              np.float32([2, 1.5, 1.5, -3, -3, 4]), (3, 3)),
+                  {"symmetry": "symmetric"}),
+    "skew": (lambda m: m.coo_from_arrays([1, 0, 2, 0], [0, 1, 0, 2],
+                                         np.float32([2.5, -2.5, 1, -1]), (3, 3)),
+             {"symmetry": "skew-symmetric"}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_WRITE_CASES))
+def test_write_mtx_is_byte_identical_and_round_trips(case, tmp_path):
+    make, kw = _WRITE_CASES[case]
+    ours, ref = tmp_path / "port.mtx", tmp_path / "jax.mtx"
+    tf.write_mtx(str(ours), make(tf), **kw)
+    jf.write_mtx(str(ref), make(jf), **kw)
+    assert ours.read_bytes() == ref.read_bytes()
+    back = tf.read_mtx(str(ours))
+    src = make(tf)
+    assert back.shape == src.shape
+    key = np.lexsort((back.cols, back.rows))
+    want = np.lexsort((src.cols, src.rows))
+    np.testing.assert_array_equal(back.rows[key], src.rows[want])
+    np.testing.assert_array_equal(back.cols[key], src.cols[want])
+    if kw.get("field") != "pattern":
+        np.testing.assert_array_equal(back.vals[key], src.vals[want].astype(np.float32))
+
+
+def test_write_mtx_refuses_what_jax_refuses(tmp_path):
+    asym = lambda m: m.coo_from_arrays([1, 0], [0, 1], np.float32([1, 2]), (2, 2))  # noqa: E731
+    for kw in ({"symmetry": "symmetric"}, {"field": "complex"}, {"symmetry": "hermitian"}):
+        with pytest.raises(ValueError):
+            jf.write_mtx(str(tmp_path / "j.mtx"), asym(jf), **kw)
+        with pytest.raises(ValueError):
+            tf.write_mtx(str(tmp_path / "t.mtx"), asym(tf), **kw)

@@ -15,9 +15,10 @@ import torch
 
 import sparseharness_tpu_torch
 from sparseharness_tpu_torch.algorithms import (
-    bfs, connected_components, make_spmv_problem, multi_bfs, multi_sssp, pagerank, sssp,
-    widest_path,
+    bfs, connected_components, eigenvector, fixpoint_components, make_spmv_problem, multi_bfs,
+    multi_sssp, pagerank, scc, sssp, widest_path,
 )
+from sparseharness_tpu_torch.cli import main as cli
 from sparseharness_tpu_torch.formats import banded_coo
 from sparseharness_tpu_torch.ops import build_operand
 from sparseharness_tpu_torch.semiring import PLUS_TIMES
@@ -53,6 +54,8 @@ def test_importing_every_module_loads_no_jax():
 def test_no_source_names_jax():
     files = list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) >= 20
+    for module in ("ops/sell.py", "cli/main.py", "cli/__main__.py", "harness/sweep.py"):
+        assert PKG / module in files
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
@@ -77,15 +80,30 @@ def test_no_source_names_jax():
     lambda coo: multi_bfs(coo, [0, 3]),
     lambda coo: sssp(coo, 0, reorder="rcm"),
     lambda coo: multi_sssp(coo, [0], variant="bsr_band", reorder="rcm"),
+    lambda coo: build_operand(coo, PLUS_TIMES, "sell"),
+    lambda coo: scc(coo),
+    lambda coo: eigenvector(coo),
+    lambda coo: fixpoint_components("scc", coo),
 ], ids=["build_operand", "make_spmv_problem", "sssp", "bfs", "pagerank",
         "connected_components", "widest_path", "build_sell2", "multi_sssp", "multi_bfs",
-        "sssp_rcm", "multi_sssp_rcm"])
+        "sssp_rcm", "multi_sssp_rcm", "build_sell", "scc", "eigenvector",
+        "fixpoint_components"])
 def test_entry_points_raise_without_a_card(entry, monkeypatch):
     """With no card and no explicit device an entry point raises; it never
     falls back to the CPU on its own."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         entry(banded_coo(64, 2, seed=1))
+
+
+@pytest.mark.parametrize("app", sorted(cli.COMMANDS))
+def test_cli_commands_exit_without_a_card(app, tmp_path, monkeypatch):
+    """Without a card and without --device cpu every command exits nonzero
+    with the no-CUDA message before it reads the matrix."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as e:
+        cli.COMMANDS[app](["-m", str(tmp_path / "never_read.mtx")])
+    assert "no CUDA device" in str(e.value.code)
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -110,5 +128,6 @@ def test_chip_smoke_fails_alone(tmp_path):
 
 def test_every_module_is_a_port_module():
     names = {m.name for m in pkgutil.walk_packages([str(PKG)])}
-    for expected in ("formats", "semiring", "ops", "gold", "harness", "algorithms", "utils"):
+    for expected in ("formats", "semiring", "ops", "gold", "harness", "algorithms", "utils",
+                     "cli"):
         assert expected in names
