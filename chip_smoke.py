@@ -61,10 +61,11 @@ result. Phases:
    launch per step), each certified;
 12. kernel timing at the ragged shape: the sell2 kernel in f32 and bf16
    (the median of five windows, the host's enqueue time per call, and the
-   device time per launch of each of its kernels from torch.profiler, with
-   the launches it recorded), its plain
-   version, torch.mv on a CSR tensor of the same matrix, the bound, and
-   the seconds of each build;
+   device time per launch of its panel and row stages from torch.profiler,
+   with the launches it recorded), its plain
+   version, torch.mv on a CSR tensor of the same matrix, the bound, the
+   bytes of the plan and of a call, the panel stage's work items (chunks
+   and runs per block, max and median), and the seconds of each build;
 13. the SpMM kernels against their plain versions: spmm_tiles for all
    seven semirings and strip types over bsr_ell and bsr_fused strips of
    random_coo(300, 257, 2500, seed=3) and random_coo(64, 4096, 6000,
@@ -920,12 +921,47 @@ def ragged_fixpoints(torch, coo, out) -> None:
            reached=int((r.x > -flt_max).sum()))
 
 
+def sell2_work(torch, plan) -> dict:
+    """The panel stage's work items: blocks, (panel, lane group)s, and the
+    128-slot chunks and runs each block carries (max and median)."""
+    blocks = plan.blocks.long().cpu()
+    chunks = blocks[:, 3] - blocks[:, 2]
+    run0 = plan.chunk_run0.long().cpu()
+    runs = run0[blocks[:, 3]] - run0[blocks[:, 2]]
+    return {"blocks": int(blocks.shape[0]),
+            "groups": len({(g, q) for g, q in blocks[:, :2].tolist()}),
+            "chunks_per_block_max": int(chunks.max()),
+            "chunks_per_block_median": float(chunks.float().median()),
+            "runs_per_block_max": int(runs.max()),
+            "runs_per_block_median": float(runs.float().median()),
+            "owners": int(plan.owners.shape[0]),
+            "pieces_per_owner_max": int((plan.owners[:, 2] - plan.owners[:, 1]).max())
+            if plan.owners.numel() else 0}
+
+
+def sell2_call_bytes(plan, x_bytes: int) -> int:
+    """The bytes one call moves by its design: each panel block's wordB and
+    vals columns and the plan tables once, the run values written and read
+    once, x once and the output once."""
+    if plan.store is None:
+        return x_bytes + plan.n_final * 4
+    block_bytes = 128 * 32 * (4 + plan.store.itemsize)
+    tables = tensor_bytes(plan.slot_word, plan.chunk_run0, plan.xbase, plan.blocks,
+                          plan.row_ptr, plan.row_runs, plan.owners, plan.owner_bits)
+    return (plan.blocks.shape[0] * block_bytes + tables + 2 * plan.n_runs * 4
+            + x_bytes + plan.n_final * 4)
+
+
 def ragged_kernel_times(torch, coo) -> dict:
     """The sell2 kernel's ms at the ragged shape (f32 and bf16), its plain
     version's ms, the bound, the seconds of each build and the library
     yardstick's ms. The bound counts the panel stream, piece_owner and
-    virt_blocks, x and the output once each; the run table the kernel
-    derives from the stream is reported beside it but not counted."""
+    virt_blocks, x and the output once each; the plan the kernel derives
+    from the stream is reported beside it (``plan_bytes``) but not
+    counted, and ``call_bytes`` is what a call moves by its design. Each
+    stage's device ms comes from torch.profiler, the host's enqueue per
+    call from ``time_windows``, and the work items per block from the
+    plan."""
     from sparseharness_tpu_torch.harness import device_hbm_bandwidth
     from sparseharness_tpu_torch.ops import sell2
     from sparseharness_tpu_torch.semiring import PLUS_TIMES
@@ -953,6 +989,7 @@ def ragged_kernel_times(torch, coo) -> dict:
             stream_bytes=tensor_bytes(*stream),
             plan_bytes=tensor_bytes(*(getattr(plan, f.name) for f in dataclasses.fields(plan)
                                       if isinstance(getattr(plan, f.name), torch.Tensor))),
+            call_bytes=sell2_call_bytes(plan, x.numel() * 4), work=sell2_work(torch, plan),
             **time_windows(torch, lambda: sell2.sell2_dp_cuda(op, x, PLUS_TIMES)),
             plain_ms=time_ms(torch, lambda: sell2.dp_sell2_plain(
                 op, x, PLUS_TIMES, n_rows=coo.shape[0]), 3))

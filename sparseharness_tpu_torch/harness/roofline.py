@@ -58,9 +58,9 @@ def variant_bytes(variant: str, operand, x_bytes: int, out_bytes: int) -> int:
     ``virt_blocks`` once, x once and the output once. The JAX package
     charges three x passes, for the transposed x tiles that XLA writes
     before its TPU kernel; the CUDA kernel reads x where it lies, so one
-    pass is the least traffic for the same work. The run table that the
-    CUDA kernel derives from the slabs is its own bookkeeping and not part
-    of that least traffic.
+    pass is the least traffic for the same work. The plan that the CUDA
+    kernel derives from the slabs is its own bookkeeping and not part of
+    that least traffic.
 
     ``sell``: every array of its slabs (lanesel, vals, blocksel and each
     level's idx) once, x once and the output once. The contrib stream and

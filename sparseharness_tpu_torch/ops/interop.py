@@ -90,8 +90,8 @@ def sell2_operand_from_numpy(slabs, layouts, n_chunks: int, n_rows: int, base_pa
                              device: DeviceLike = None) -> Sell2Operand:
     """The sell2 operand from its per-slab arrays (None for an empty slab,
     else a mapping of chunk, wordA, wordB and vals) and layouts, as the JAX
-    package's Sell2Operand holds them. The kernel's run table is derived
-    from them on the device, as build_sell2 derives it."""
+    package's Sell2Operand holds them. The kernel's plan is derived from
+    them on the device, as build_sell2 derives it."""
     device = resolve_device(device)
     dev_slabs = [None if s is None else {k: _tensor(s[k], device)
                                          for k in ("chunk", "wordA", "wordB", "vals")}

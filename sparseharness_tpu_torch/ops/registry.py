@@ -205,8 +205,9 @@ register_variant(KernelVariant(
     build=lambda coo, sr, g, device: sell2.build_sell2(
         coo, sr, value_dtype=g.value_dtype, device=device),
     dp=sell2.dp_sell2,
-    description="Ragged/power-law panels: one CUDA launch over every "
-                "(slab, bucket) layout, products in shared memory, runs "
-                "reduced in the TPU butterfly's order, rows ⊕-reduced from "
-                "a run table; no cap on x",
+    description="Ragged/power-law panels: one call over every (slab, "
+                "bucket) layout, a block per (panel, 32-lane group) with "
+                "runs reduced by warp shuffles in the TPU butterfly's "
+                "order, then rows and split-row pieces ⊕-reduced from the "
+                "plan; no cap on x",
 ))

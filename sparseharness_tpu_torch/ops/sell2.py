@@ -25,11 +25,15 @@ out row (row0 + o·128 + l) ⊕-accumulates the run its route names, layout
 by layout and panel by panel. Rows longer than ``SPLIT_T`` are striped
 over overflow pieces past ``base_pad`` and ⊕-folded back after the sweep.
 
-On a CUDA tensor :func:`dp_sell2` launches the kernel pair of
-``csrc/sell2.cu`` over all panels of all layouts at once, driven by a run
-table (:class:`Sell2Plan`) that :func:`make_plan` decodes on the device
-from wordA and wordB. On a CPU tensor it runs :func:`dp_sell2_plain`, a
-literal torch replica of the TPU kernel's panel body.
+On a CUDA tensor :func:`dp_sell2` makes one call into ``csrc/sell2.cu``
+over all panels of all layouts at once: a panel stage, one block per
+(panel, 32-lane group) that reduces its runs in chunks of 128 slots, and
+a row stage that reduces each output row's runs and folds the pieces.
+Both are driven by a plan (:class:`Sell2Plan`) that :func:`make_plan`
+decodes once per operand, on the device, from wordA and wordB, with the
+launch's arguments made once beside it. On a CPU tensor it runs
+:func:`dp_sell2_plain`, a literal torch replica of the TPU kernel's panel
+body.
 """
 
 from __future__ import annotations
@@ -73,6 +77,13 @@ SHELF_HOLE_TRIES = 32
 #: virtualized: their blocks regroup into synthetic chunks so that light
 #: segments from many chunks share panels
 VIRT_DEMAND_T = 100
+#: lanes of a panel that one panel-stage block owns
+GROUP_LANES = 32
+#: run slots a warp reduces at once (4 a lane); no run crosses a chunk
+CHUNK_SLOTS = 128
+#: most chunks one panel-stage block carries; a (panel, lane group) with
+#: more is cut into near-equal blocks, each computing the group's products
+BLOCK_CHUNK_CAP = 32
 
 
 class _SlabLayout(NamedTuple):
@@ -84,39 +95,66 @@ class _SlabLayout(NamedTuple):
     has_hi: bool    # any out slot ≥ 128 (hi route set in play)
 
 
-@dataclasses.dataclass(frozen=True)
+#: the plan's tensors that the kernel reads, in csrc/sell2.cu:Sell2Plan's order
+_LAUNCH_TENSORS = ("panel_ptrs", "xbase", "blocks", "slot_word", "chunk_run0", "row_ptr",
+                   "row_runs", "owners", "piece_slot", "owner_bits", "owner_done")
+
+
+class _Launch(ctypes.Structure):
+    """The call's fixed arguments, as csrc/sell2.cu:Sell2Plan takes them."""
+
+    _fields_ = ([(f, ctypes.c_void_p) for f in _LAUNCH_TENSORS]
+                + [(f, ctypes.c_int) for f in (
+                    "n_blocks", "n_runs", "n_pieces", "n_final", "base_pad", "val_dtype",
+                    "device")])
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class Sell2Plan:
-    """The kernel's run table, decoded on the device from the slabs.
+    """The kernel's plan, decoded on the device from the slabs.
 
-    Global panel g (layouts with panels concatenated in order) lies in
-    launched layout ``panel_layout[g]`` at index ``panel_local[g]``; its
-    runs are [panel_run_ptr[g], panel_run_ptr[g + 1]), each packed as
-    ``l | off << 7 | level << 15`` (row-class, aligned offset, capture
-    level). A run's value goes to ``run_dest[i]`` of the row-sorted run
-    list, whose row r holds [row_ptr[r], row_ptr[r + 1]) in (layout,
-    panel) order, ``run_layout`` naming each one's layout. Owner row r
-    folds overflow pieces [piece_ptr[r], piece_ptr[r + 1]). ``layout_ptrs``
-    holds the data pointers of each launched layout's chunk, wordA, wordB
-    and vals: the plan belongs to these tensors and is remade with them."""
+    Global panel g (layouts with panels concatenated in order) has its
+    wordB and vals at ``panel_ptrs[g]`` and binds, for sublane s and way w,
+    the x block that starts at column ``xbase[g, s, w]``. A work item
+    (panel-stage block) ``blocks[i] = (g, q, c0, c1)`` reduces chunks
+    [c0, c1) of 128 run slots, which hold the runs of lanes
+    [32q, 32q + 32) of panel g, widest first, each aligned to its width.
+    Slot word j is ``a·32 + l − 32q`` (align sublane, lane) and, at a run's
+    first slot, ``(level + 1) << 12``. Runs are numbered in slot order,
+    ``chunk_run0[c]`` of them before chunk c. Dp row r's runs are
+    ``row_runs[row_ptr[r]:row_ptr[r + 1]]`` in (layout, panel) order, bit 31
+    set on a run whose layout differs from the one before it. Owner row
+    ``owners[i, 0]`` folds overflow pieces [owners[i, 1], owners[i, 2]),
+    piece k belongs to ``owners[piece_slot[k]]``, and owners are marked in
+    ``owner_bits``. ``owner_done`` counts each owner's pieces during a
+    call and is 0 between calls, so calls on one operand run in stream
+    order. ``slabs`` is the operand's list that the pointers and
+    ``launch`` were made from: the plan is remade with its slabs."""
 
-    layout_ptrs: torch.Tensor    # int64 (L, 4)
-    panel_layout: torch.Tensor   # int32 (G,)
-    panel_local: torch.Tensor    # int32 (G,)
-    panel_run_ptr: torch.Tensor  # int32 (G + 1,)
-    run_info: torch.Tensor       # int32 (R,)
-    run_dest: torch.Tensor       # int32 (R,)
-    run_layout: torch.Tensor     # int32 (R,), row-sorted
-    row_ptr: torch.Tensor        # int32 (n_out + 1,)
-    piece_ptr: torch.Tensor      # int32 (base_pad + 1,); empty without pieces
-    host_ptrs: tuple             # layout_ptrs as Python ints
+    slabs: list
+    panel_ptrs: torch.Tensor   # int64 (G, 2)
+    xbase: torch.Tensor        # int32 (G, 128, 2)
+    blocks: torch.Tensor       # int32 (B, 4), a panel's together
+    slot_word: torch.Tensor    # int16 (C·128,), read as uint16
+    chunk_run0: torch.Tensor   # int32 (C + 1,)
+    row_ptr: torch.Tensor      # int32 (n_out + 1,)
+    row_runs: torch.Tensor     # int32 (R,)
+    owners: torch.Tensor       # int32 (O, 3)
+    piece_slot: torch.Tensor   # int32 (n_pieces,)
+    owner_bits: torch.Tensor   # int32 (ceil(n_final / 32),)
+    owner_done: torch.Tensor   # int32 (O,), zeros
+    n_final: int               # output rows: base_pad with pieces, else n_out
+    store: Optional[torch.dtype]  # value type of the panels (None: no panel)
+    device: torch.device
+    launch: _Launch
 
     @property
     def n_panels(self) -> int:
-        return int(self.panel_layout.numel())
+        return int(self.panel_ptrs.shape[0])
 
     @property
     def n_runs(self) -> int:
-        return int(self.run_info.numel())
+        return int(self.row_runs.numel())
 
     @property
     def n_out(self) -> int:
@@ -540,7 +578,7 @@ def build_sell2(coo: COO, sr: Semiring, value_dtype: str = "float32",
                 split_calls: bool = True, virtual_chunks: bool = True, *,
                 device: DeviceLike = None) -> Sell2Operand:
     """Pack a COO matrix into the panel stream, as the JAX package's NumPy
-    encoder does, and upload it with its run table.
+    encoder does, and upload it with the kernel's plan.
 
     ``split_calls``: bucket each slab's panels by (butterfly depth group
     {0}, {1, 2}, {3+}; two align tiles), one layout per bucket, so that
@@ -623,11 +661,13 @@ def build_sell2(coo: COO, sr: Semiring, value_dtype: str = "float32",
 def assemble(slabs, layouts, n_chunks: int, n_rows: int, base_pad: int,
              piece_owner, virt_blocks, device: torch.device) -> Sell2Operand:
     """A Sell2Operand from slabs on ``device``, with its plan made there."""
-    return Sell2Operand(slabs=list(slabs), layouts=tuple(layouts),
+    slabs = list(slabs)
+    return Sell2Operand(slabs=slabs, layouts=tuple(layouts),
                         n_chunks=int(n_chunks), n_rows=int(n_rows),
                         base_pad=int(base_pad), piece_owner=piece_owner,
                         virt_blocks=virt_blocks,
-                        plan=make_plan(slabs, layouts, piece_owner, base_pad, device))
+                        plan=make_plan(slabs, layouts, n_chunks, piece_owner, virt_blocks,
+                                       base_pad, device))
 
 
 def _row_starts(layouts) -> Tuple[dict, int]:
@@ -641,74 +681,191 @@ def _row_starts(layouts) -> Tuple[dict, int]:
     return starts, n_out
 
 
-def make_plan(slabs, layouts, piece_owner, base_pad: int,
-              device: torch.device) -> Sell2Plan:
-    """The run table of the kernel, decoded from wordA and wordB in torch on
-    ``device``.
+def _layout_runs(slab: dict, lay: _SlabLayout):
+    """(panel, row-class, out slot, aligned offset, level) of each run of a
+    layout, panel by panel. Out slot o of row-class l reads the offset its
+    route names (lane, and tile when the layout has two align tiles); that
+    offset holds a run when its capture level v satisfies 1 ≤ v ≤ depth + 1,
+    as the TPU kernel captures it, and any other offset gives 0̄, which
+    needs no run."""
+    P, d_out = lay.panels, lay.rows // LANES
+    wa = slab["wordA"].view(P, LANES, LANES)
+    route = slab["wordB"].view(P, LANES, LANES)[:, :, :min(d_out, LANES)]
+    lane, tile = (route >> 7) & 127, (route >> 14) & 1
+    if lay.has_hi and d_out > LANES:
+        hi = wa[:, :, :d_out - LANES]
+        lane = torch.cat([lane, (hi >> 22) & 127], dim=2)
+        tile = torch.cat([tile, (hi >> 29) & 1], dim=2)
+    off = lane + LANES * tile if lay.two_tiles else lane
+    word = torch.take_along_dim(wa, (off & 127).long(), dim=2)
+    cap = torch.where(off < LANES, word >> 14, word >> 18) & 15
+    p, l, o = torch.nonzero((cap >= 1) & (cap <= lay.depth + 1), as_tuple=True)
+    return p, l, o, off[p, l, o].long(), cap[p, l, o].long() - 1
 
-    Out slot o of row-class l in a panel reads the offset its route names
-    (lane, and tile when the layout has two align tiles); that offset holds
-    a run when its capture level v satisfies 1 ≤ v ≤ depth + 1, as the TPU
-    kernel captures it, and any other offset gives 0̄, which needs no run."""
+
+def _xbase(slab: dict, lay: _SlabLayout, n_chunks: int, virt_blocks) -> torch.Tensor:
+    """(P, 128, 2): the first x column of the block that sublane s binds for
+    way w, through its chunk (wordB's row 0, column s) or virtual chunk."""
+    bind = slab["wordB"].view(lay.panels, LANES, LANES)[:, 0, :].long()
+    chunk = slab["chunk"].long()
+    c = torch.where(((bind >> 30) & 1) == 1, chunk[:, 1:2], chunk[:, 0:1]).unsqueeze(2)
+    blk = torch.stack([(bind >> 22) & 127, (bind >> 15) & 127], dim=2)
+    base = c * CHUNK_COLS + blk * LANES
+    if virt_blocks is not None:
+        virt = virt_blocks.long()
+        vbase = virt[(c - n_chunks).clamp(0, virt.shape[0] - 1), blk] * LANES
+        base = torch.where(c < n_chunks, base, vbase)
+    return base
+
+
+def _int32_bits(t: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) as the int32 of the same bits."""
+    return torch.where(t >= 1 << 31, t - (1 << 32), t).to(torch.int32)
+
+
+def _work_items(item_chunks: np.ndarray, item_c0: np.ndarray) -> np.ndarray:
+    """(B, 4) int32 panel-stage blocks (panel, lane group, c0, c1): each
+    (panel, lane group) with runs, cut into the fewest near-equal chunk
+    ranges of at most BLOCK_CHUNK_CAP chunks. A panel's blocks are
+    adjacent, so that they read its stream rows at about the same time,
+    and panels with the most chunks come first."""
+    items = np.nonzero(item_chunks)[0]
+    n = item_chunks[items]
+    parts = -(-n // BLOCK_CHUNK_CAP)
+    it = np.repeat(items, parts)
+    k = np.arange(int(parts.sum())) - np.repeat(np.cumsum(parts) - parts, parts)
+    nk, pk = np.repeat(n, parts), np.repeat(parts, parts)
+    lo = item_c0[it] + k * nk // pk
+    hi = item_c0[it] + (k + 1) * nk // pk
+    groups = LANES // GROUP_LANES
+    panel = it // groups
+    panel_chunks = np.bincount(panel, weights=hi - lo)
+    blocks = np.stack([panel, it % groups, lo, hi], axis=1)
+    return blocks[np.argsort(-panel_chunks[panel], kind="stable")].astype(np.int32)
+
+
+def make_plan(slabs, layouts, n_chunks: int, piece_owner, virt_blocks, base_pad: int,
+              device: torch.device) -> Sell2Plan:
+    """The kernel's plan, decoded once from wordA and wordB in torch on
+    ``device``, with the launch's arguments."""
     starts, n_out = _row_starts(layouts)
-    ptrs, panel_layout, panel_local = [], [], []
-    g_all, info_all, row_all, lay_all = [], [], [], []
+    ptrs, xbase, stores = [], [], set()
+    g_all, l_all, lev_all, row_all, lay_all, a_all, t_all = [], [], [], [], [], [], []
     g0 = 0
-    for slab, lay in zip(slabs, layouts):
-        if lay.panels == 0:
-            continue
-        li = len(ptrs)
-        ptrs.append([slab[k].data_ptr() for k in ("chunk", "wordA", "wordB", "vals")])
-        P, d_out = lay.panels, lay.rows // LANES
-        wa = slab["wordA"].view(P, LANES, LANES)
-        route = slab["wordB"].view(P, LANES, LANES)[:, :, :min(d_out, LANES)]
-        lane, tile = (route >> 7) & 127, (route >> 14) & 1
-        if lay.has_hi and d_out > LANES:
-            hi = wa[:, :, :d_out - LANES]
-            lane = torch.cat([lane, (hi >> 22) & 127], dim=2)
-            tile = torch.cat([tile, (hi >> 29) & 1], dim=2)
-        off = lane + LANES * tile if lay.two_tiles else lane
-        word = torch.take_along_dim(wa, (off & 127).long(), dim=2)
-        cap = torch.where(off < LANES, word >> 14, word >> 18) & 15
-        p, l, o = torch.nonzero((cap >= 1) & (cap <= lay.depth + 1), as_tuple=True)
+    launched = [(s, lay) for s, lay in zip(slabs, layouts) if lay.panels]
+    for li, (slab, lay) in enumerate(launched):
+        P = lay.panels
+        p, l, o, off, level = _layout_runs(slab, lay)
+        # run slot t of each run, runs in order, and its align sublane a(j)
+        w = 1 << level
+        rep = torch.repeat_interleave(torch.arange(w.numel(), device=device), w)
+        t = torch.arange(rep.numel(), device=device) - (torch.cumsum(w, 0) - w)[rep]
+        j = (off & ~(w - 1))[rep] + t
+        word = slab["wordA"].view(P, LANES, LANES)[p[rep], l[rep], j & 127].long()
+        a_all.append(torch.where(j < LANES, word & 127, (word >> 7) & 127))
+        t_all.append(t)
         g_all.append(g0 + p)
-        info_all.append(l | (off[p, l, o].long() << 7) | ((cap[p, l, o].long() - 1) << 15))
+        l_all.append(l)
+        lev_all.append(level)
         row_all.append(starts[lay.row0] + o * LANES + l)
         lay_all.append(torch.full_like(p, li))
-        panel_layout.append(torch.full((P,), li, dtype=torch.int32, device=device))
-        panel_local.append(torch.arange(P, dtype=torch.int32, device=device))
+        xbase.append(_xbase(slab, lay, n_chunks, virt_blocks))
+        vals = slab["vals"]
+        stores.add(vals.dtype)
+        panel = torch.arange(P, dtype=torch.int64)
+        ptrs.append(torch.stack([slab["wordB"].data_ptr() + panel * (LANES * LANES * 4),
+                                 vals.data_ptr() + panel * (LANES * LANES
+                                                            * vals.element_size())], 1))
         g0 += P
+    if len(stores) > 1:
+        raise ValueError(f"mixed value types {stores}")
 
-    def cat(parts, dtype=torch.int64):
-        return (torch.cat(parts) if parts
-                else torch.zeros(0, dtype=dtype, device=device))
-
-    g, row, run_lay = cat(g_all), cat(row_all), cat(lay_all)
-    order = torch.argsort(row, stable=True)
-    dest = torch.empty_like(order)
-    dest[order] = torch.arange(order.numel(), device=device)
+    def cat(parts):
+        return torch.cat(parts) if parts else torch.zeros(0, dtype=torch.int64, device=device)
 
     def ptr(counts):
         out = torch.zeros(counts.numel() + 1, dtype=torch.int64, device=device)
         torch.cumsum(counts, 0, out=out[1:])
-        return out.to(torch.int32)
+        return out
+
+    g, l, level, row, run_lay, a, t = (cat(parts) for parts in (
+        g_all, l_all, lev_all, row_all, lay_all, a_all, t_all))
+    n_runs = g.numel()
+    w = 1 << level
+
+    # run ids in slot order: by (panel, lane group), widest first, so that
+    # each run lies aligned to its width inside one 128-slot chunk
+    groups = LANES // GROUP_LANES
+    item = g * groups + l // GROUP_LANES
+    order = torch.sort(item * 8 + 7 - level, stable=True).indices
+    run_id = torch.empty_like(order)
+    run_id[order] = torch.arange(n_runs, device=device)
+    item_slots = torch.zeros(g0 * groups, dtype=torch.int64, device=device).index_add_(
+        0, item, w)
+    item_chunks = -(-item_slots // CHUNK_SLOTS)
+    item_c0 = ptr(item_chunks)[:-1]
+    slot_before = ptr(item_slots)[:-1]
+    ws = w[order]
+    pos = item_c0[item[order]] * CHUNK_SLOTS + torch.cumsum(ws, 0) - ws - slot_before[
+        item[order]]
+    n_chunk = int(item_chunks.sum())
+    rep = torch.repeat_interleave(torch.arange(n_runs, device=device), w)
+    word = a * GROUP_LANES + l[rep] % GROUP_LANES + torch.where(
+        t == 0, (level[rep] + 1) << 12, 0)
+    slot_word = torch.zeros(n_chunk * CHUNK_SLOTS, dtype=torch.int64, device=device)
+    slot_word[pos[run_id[rep]] + t] = word
+    chunk_run0 = torch.searchsorted(
+        pos, torch.arange(n_chunk + 1, device=device) * CHUNK_SLOTS)
+    blocks = _work_items(item_chunks.cpu().numpy(), item_c0.cpu().numpy())
+
+    # the row stage: each dp row's runs in (layout, panel) order
+    by_row = torch.argsort(row, stable=True)
+    row_s, lay_s = row[by_row], run_lay[by_row]
+    opens = torch.zeros(n_runs, dtype=torch.bool, device=device)
+    opens[1:] = (row_s[1:] == row_s[:-1]) & (lay_s[1:] != lay_s[:-1])
+    row_runs = torch.where(opens, run_id[by_row] - (1 << 31), run_id[by_row])
 
     if piece_owner is not None:
+        n_final = base_pad
         piece_ptr = ptr(torch.bincount(piece_owner.long(), minlength=base_pad))
+        own = torch.nonzero(piece_ptr[1:] > piece_ptr[:-1]).flatten()
+        owners = torch.stack([own, piece_ptr[own], piece_ptr[own + 1]], 1)
+        piece_slot = torch.repeat_interleave(torch.arange(own.numel(), device=device),
+                                             owners[:, 2] - owners[:, 1])
     else:
-        piece_ptr = torch.zeros(0, dtype=torch.int32, device=device)
-    return Sell2Plan(
-        layout_ptrs=torch.tensor(ptrs, dtype=torch.int64, device=device).view(-1, 4),
-        panel_layout=cat(panel_layout, torch.int32),
-        panel_local=cat(panel_local, torch.int32),
-        panel_run_ptr=ptr(torch.bincount(g, minlength=g0)),
-        run_info=cat(info_all).to(torch.int32),
-        run_dest=dest.to(torch.int32),
-        run_layout=run_lay[order].to(torch.int32),
-        row_ptr=ptr(torch.bincount(row, minlength=n_out)),
-        piece_ptr=piece_ptr,
-        host_ptrs=tuple(tuple(r) for r in ptrs),
+        n_final = n_out
+        own = piece_slot = torch.zeros(0, dtype=torch.int64, device=device)
+        owners = torch.zeros((0, 3), dtype=torch.int64, device=device)
+    owner_bits = torch.zeros(-(-n_final // 32), dtype=torch.int64, device=device)
+    owner_bits.index_add_(0, own >> 5, 1 << (own & 31))
+
+    xb = (torch.cat(xbase) if xbase else torch.zeros((0, LANES, 2), dtype=torch.int64,
+                                                      device=device))
+    if xb.numel() and int(xb.max()) >= 1 << 31:
+        raise ValueError("sell2: x is too long for the kernel's int32 block columns")
+    store = stores.pop() if stores else None
+    tensors = dict(
+        panel_ptrs=(torch.cat(ptrs) if ptrs else torch.zeros((0, 2), dtype=torch.int64)
+                    ).to(device),
+        xbase=xb.to(torch.int32).contiguous(),
+        blocks=torch.from_numpy(blocks).reshape(-1, 4).to(device),
+        slot_word=torch.where(slot_word >= 1 << 15, slot_word - (1 << 16),
+                              slot_word).to(torch.int16),
+        chunk_run0=chunk_run0.to(torch.int32),
+        row_ptr=ptr(torch.bincount(row, minlength=n_out)).to(torch.int32),
+        row_runs=row_runs.to(torch.int32),
+        owners=owners.to(torch.int32).contiguous(),
+        piece_slot=piece_slot.to(torch.int32),
+        owner_bits=_int32_bits(owner_bits),
+        owner_done=torch.zeros(owners.shape[0], dtype=torch.int32, device=device),
     )
+    device = tensors["row_ptr"].device
+    launch = _Launch(*(tensors[f].data_ptr() for f in _LAUNCH_TENSORS),
+                     tensors["blocks"].shape[0], n_runs, piece_slot.numel(), n_final,
+                     int(base_pad), -1 if store is None else _build.STRIP_CODES[store],
+                     device.index or 0)
+    return Sell2Plan(slabs=slabs, n_final=n_final, store=store, device=device,
+                     launch=launch, **tensors)
 
 
 def dp_sell2(op: Sell2Operand, x: torch.Tensor, sr: Semiring, *,
@@ -831,8 +988,9 @@ def _fold_pieces_plain(op: Sell2Operand, dp: torch.Tensor, sr: Semiring) -> torc
         return dp
     add = _carrier(sr)[1]
     ident = _SEGMENT_IDENTITY[_SEGMENT_REDUCE[add], dp.dtype]
-    ptr = op.plan.piece_ptr.long()
-    counts = ptr[1:] - ptr[:-1]
+    counts = torch.bincount(op.piece_owner.long(), minlength=op.base_pad)
+    ptr = torch.zeros(op.base_pad + 1, dtype=torch.int64, device=dp.device)
+    torch.cumsum(counts, 0, out=ptr[1:])
     owners = torch.nonzero(counts).flatten()
     seg = torch.full((op.base_pad,), ident, dtype=dp.dtype, device=dp.device)
     n_pieces = int(op.piece_owner.shape[0])
@@ -847,49 +1005,40 @@ def _fold_pieces_plain(op: Sell2Operand, dp: torch.Tensor, sr: Semiring) -> torc
     return add(dp[:op.base_pad], seg)
 
 
+#: the value types a carrier's kernel takes
+_TAKES = {torch.float32: (torch.float32, torch.bfloat16), torch.int32: (torch.int32,)}
+#: csrc/sell2.cu:sh_sell2_dp(plan, x, n_x, buf, semiring, stream)
+_DP_ARGTYPES = [ctypes.POINTER(_Launch), ctypes.c_void_p, ctypes.c_longlong,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+
+
 def sell2_dp_cuda(op: Sell2Operand, x: torch.Tensor, sr: Semiring) -> torch.Tensor:
-    """Launch the sell2 kernel pair (and the piece fold) over every panel of
-    the operand: the carrier-typed dp of :func:`dp_sell2`. Raises on what
+    """The sell2 dp in one call of the kernel library (a panel launch and a
+    row launch) over every panel of the operand, with the arguments its plan
+    made once: the carrier-typed dp of :func:`dp_sell2`, pieces folded.
+    Raises on a plan that does not belong to the operand's slabs, on what
     the kernel does not take and on a refused launch."""
     plan = op.plan
-    dev = plan.row_ptr.device
+    if plan.slabs is not op.slabs:
+        raise ValueError("the plan does not belong to these slabs: remake it with assemble")
+    dev = plan.device
     if dev.type != "cuda" or x.device != dev:
         raise ValueError("sell2_dp_cuda needs the operand and x on one CUDA device")
-    carrier, *_ = _carrier(sr)
-    launched = [s for s, lay in zip(op.slabs, op.layouts) if lay.panels]
-    store = {s["vals"].dtype for s in launched}
-    if len(store) > 1:
-        raise ValueError(f"mixed value types {store}")
-    store_dtype = store.pop() if store else carrier
-    ok = ((torch.float32, torch.bfloat16) if carrier == torch.float32 else (torch.int32,))
-    if store_dtype not in ok:
-        raise ValueError(f"{sr.name} takes values of {ok}, got {store_dtype}")
-    ptrs = tuple(tuple(s[k].data_ptr() for k in ("chunk", "wordA", "wordB", "vals"))
-                 for s in launched)
-    if ptrs != plan.host_ptrs:
-        raise ValueError("the plan does not belong to these slabs: remake it with assemble")
-    x = x.to(sr.dtype).to(carrier).contiguous()
-    pieces = op.piece_owner is not None
-    dp = torch.empty(plan.n_out, dtype=carrier, device=dev)
-    out = torch.empty(op.base_pad, dtype=carrier, device=dev) if pieces else dp
-    run_vals = torch.empty(max(plan.n_runs, 1), dtype=carrier, device=dev)
-    virt = op.virt_blocks
-    fn = _build.function("sell2", "sh_sell2_dp",
-                         [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_longlong]
-                         + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
-                         + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    carrier = _carrier(sr)[0]
+    if plan.store is not None and plan.store not in _TAKES[carrier]:
+        raise ValueError(f"{sr.name} takes values of {_TAKES[carrier]}, got {plan.store}")
+    if x.dtype != sr.dtype or sr.dtype != carrier:
+        x = x.to(sr.dtype).to(carrier)
+    x = x.contiguous()
+    # the output rows, then scratch for the run and the piece values
+    launch = plan.launch
+    buf = torch.empty(launch.n_final + launch.n_runs + launch.n_pieces, dtype=carrier,
+                      device=dev)
+    fn = _build.function("sell2", "sh_sell2_dp", _DP_ARGTYPES)
+    # the raw current stream: torch.cuda.current_stream builds a Stream object
+    # on every call, which costs more host time than the rest of the enqueue
     _build.check_launch("sell2", fn(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        plan.layout_ptrs.data_ptr(), plan.panel_layout.data_ptr(),
-        plan.panel_local.data_ptr(), plan.panel_run_ptr.data_ptr(),
-        plan.run_info.data_ptr(), plan.run_dest.data_ptr(), plan.run_layout.data_ptr(),
-        plan.row_ptr.data_ptr(), plan.piece_ptr.data_ptr() if pieces else None,
-        x.data_ptr(), x.numel(),
-        virt.data_ptr() if virt is not None else None, op.n_chunks,
-        run_vals.data_ptr(), dp.data_ptr(), out.data_ptr(),
-        plan.n_panels, plan.n_out, op.base_pad if pieces else 0,
-        _build.SR_CODES[sr.name], _build.STRIP_CODES[store_dtype],
-        torch.cuda.current_stream(dev).cuda_stream,
-    ))
+        ctypes.byref(launch), x.data_ptr(), x.numel(), buf.data_ptr(),
+        _build.SR_CODES[sr.name], torch._C._cuda_getCurrentRawStream(dev.index)))
     _build.LAUNCHES["sell2"] += 1
-    return out
+    return buf[:launch.n_final]

@@ -193,6 +193,36 @@ def test_sell2_kernel_matches_plain(name, value_dtype, cuda):
         assert torch.equal(got, again)
 
 
+@pytest.fixture(scope="module")
+def heavy_power_law():
+    """A power-law matrix whose heaviest (panel, lane group)s carry more than
+    the panel stage's chunk cap, and whose hub rows have hundreds of pieces."""
+    return power_law_coo(200_000, 800_000, alpha=1.5, seed=13)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,value_dtype", [("plus_times", "float32"),
+                                              ("plus_times", "bfloat16"),
+                                              ("min_plus", "float32"), ("or_and", "float32")])
+def test_sell2_kernel_matches_plain_split_items(name, value_dtype, heavy_power_law, cuda):
+    """Bit for bit, and the same bits again, where work items are cut over
+    several panel blocks and owners fold hundreds of pieces."""
+    sr = get_semiring(name)
+    coo = heavy_power_law
+    if sr.dtype == torch.bool:
+        coo = coo.with_values(coo.vals != 0)
+    op = sell2.build_sell2(coo, sr, value_dtype=value_dtype, device=cuda)
+    blocks = op.plan.blocks.cpu()
+    assert blocks.shape[0] > len({(g, q) for g, q in blocks[:, :2].tolist()})
+    x = _x(sr, coo.shape[1], seed=9).to(cuda)
+    got = sell2.sell2_dp_cuda(op, x, sr)
+    again = sell2.sell2_dp_cuda(op, x, sr)
+    torch.cuda.synchronize()
+    ref = sell2.dp_sell2_plain(op, x, sr, n_rows=coo.shape[0])
+    assert got.dtype == ref.dtype and torch.equal(got, ref)
+    assert torch.equal(got, again)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant", ["bsr_fused", "bsr_ell", "bsr_pallas", "sell2"])
 def test_spmv_launches_blocked_kernel(variant, cuda):

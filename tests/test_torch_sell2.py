@@ -6,10 +6,14 @@ JAX side on its NumPy path). The plain dp, on the JAX-built operand carried
 over by interop and on the port-built one, must equal JAX's dp_sell2 in
 interpret mode: bit for bit for the six min/max/or semirings, plus_times
 within 1e-5 · max(1, |dp|, Σ|a·x|). The CUDA kernel cannot run here, so
-its run table is held by a torch model of the kernel (run values in the
-butterfly's pairwise order, rows reduced from the table), which must give
-the plain version's bits for every semiring.
+its plan is held by a torch model of the kernel (products per work item,
+run values in the butterfly's pairwise order, rows and pieces reduced from
+the plan), which must give the plain version's bits for every semiring,
+and by the plan's own invariants.
 """
+
+import dataclasses
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +28,7 @@ from sparseharness_tpu_torch.gold import Correctness, check_result, spmv_abs_bou
 from sparseharness_tpu_torch.harness import variant_bytes
 from sparseharness_tpu_torch.ops import LAUNCHES, Geometry, build_operand, sell2, spmv
 from sparseharness_tpu_torch.ops.interop import sell2_operand_from_numpy
+from sparseharness_tpu_torch.ops.torch_ops import _SEGMENT_IDENTITY, _SEGMENT_REDUCE
 from sparseharness_tpu_torch.semiring import REGISTRY, PLUS_TIMES, get_semiring
 from sparseharness_tpu_torch.semiring.core import _carrier
 
@@ -253,71 +258,70 @@ def test_virtual_chunks_pack_denser():
 
 
 def _kernel_model(op, x, sr):
-    """What csrc/sell2.cu computes, in torch: each panel's products with the
-    sublane bindings of wordB's row 0, each run of the plan reduced
-    pairwise, each row's runs ⊕-reduced per layout and then across
-    layouts, and the pieces folded one after another."""
+    """What csrc/sell2.cu computes, in torch, driven by the plan: each work
+    item's products for its 32-lane group through xbase, each 128-slot chunk
+    reduced by the butterfly (pairwise ⊕ of slots 2i and 2i + 1, level by
+    level) with each run's value taken at its first slot and written at its
+    id (the chunk's first id plus the starts before it); then each output
+    row's runs ⊕-reduced per layout and across layouts, and each owner's
+    own row and pieces folded one after another."""
     carrier, add, mul, _, zero, _ = _carrier(sr)
     plan = op.plan
     x = x.to(sr.dtype).to(carrier)
     launched = [s for s, lay in zip(op.slabs, op.layouts) if lay.panels]
-    contrib = []
-    for slab in launched:
-        wb = slab["wordB"].view(-1, 128, 128).long()
-        bind = wb[:, 0, :].unsqueeze(2)                        # [p, s, 1]
-        c = torch.where(((bind >> 30) & 1) == 1, slab["chunk"][:, 1, None, None],
-                        slab["chunk"][:, 0, None, None]).long()
-        blk = torch.where(((wb >> 29) & 1) == 1, (bind >> 15) & 127, (bind >> 22) & 127)
-        virt = op.virt_blocks.long() if op.virt_blocks is not None else torch.zeros(1, 128).long()
-        vblk = virt[(c - op.n_chunks).clamp(min=0, max=virt.shape[0] - 1), blk]
-        base = torch.where(c < op.n_chunks, c * CHUNK_COLS + blk * 128, vblk * 128)
-        xi = base + (wb & 127)
+    run_vals = torch.empty(plan.n_runs, dtype=carrier)
+    if launched:
+        wb = torch.cat([s["wordB"].view(-1, 128, 128) for s in launched]).long()
+        vals = torch.cat([s["vals"].view(-1, 128, 128) for s in launched])
+        vals = vals.float() if vals.dtype == torch.bfloat16 else vals
+    words = plan.slot_word.long().view(-1, 128) & 0xFFFF
+    group = sell2.GROUP_LANES
+    for g, q, c0, c1 in plan.blocks.tolist():
+        b = wb[g, :, q * group:(q + 1) * group]
+        xi = plan.xbase[g].long()[torch.arange(128)[:, None], (b >> 29) & 1] + (b & 127)
         xv = torch.where(xi < x.numel(), x[xi.clamp(max=x.numel() - 1)],
                          torch.full_like(x[:1], zero))
-        v = slab["vals"].view(-1, 128, 128)
-        contrib.append(mul(xv, v.float() if v.dtype == torch.bfloat16 else v))
-    contrib = torch.cat(contrib) if contrib else None
-    words = torch.cat([s["wordA"].view(-1, 128, 128) for s in launched]) if launched else None
-    ptr = plan.panel_run_ptr.long()
-    run_panel = torch.repeat_interleave(torch.arange(plan.n_panels), ptr[1:] - ptr[:-1])
-    info = plan.run_info.long()
-    l, off, level = info & 127, (info >> 7) & 255, (info >> 15) & 7
-    vals = torch.empty(plan.n_runs, dtype=carrier)
-    for lv in range(8):
-        sel = torch.nonzero(level == lv).flatten()
-        if not sel.numel():
-            continue
-        w = 1 << lv
-        j = (off[sel] & ~(w - 1))[:, None] + torch.arange(w)         # (R, w)
-        word = words[run_panel[sel, None], l[sel, None], j & 127]
-        a = torch.where(j < 128, word & 127, (word >> 7) & 127)
-        t = contrib[run_panel[sel, None], a, l[sel, None]]
-        while t.shape[1] > 1:
-            t = add(t[:, 0::2], t[:, 1::2])
-        vals[sel] = t[:, 0]
-    sorted_vals = torch.empty_like(vals)
-    sorted_vals[plan.run_dest.long()] = vals
-    dp = torch.full((plan.n_out,), zero, dtype=carrier)
-    rp = plan.row_ptr.tolist()
-    for r in torch.nonzero(plan.row_ptr[1:] > plan.row_ptr[:-1]).flatten().tolist():
-        total, part, cur = dp[r], None, None
-        for k in range(rp[r], rp[r + 1]):
-            lay = int(plan.run_layout[k])
-            if lay != cur and part is not None:
-                total, part = add(total, part), None
-            cur = lay
-            part = add(torch.tensor(zero, dtype=carrier) if part is None else part,
-                       sorted_vals[k])
-        dp[r] = add(total, part)
-    if op.piece_owner is None:
-        return dp
-    return sell2._fold_pieces_plain(op, dp, sr)
+        prod = mul(xv, vals[g, :, q * group:(q + 1) * group]).reshape(-1)
+        w = words[c0:c1]
+        level_sums = [prod[w & 0xFFF]]
+        while level_sums[-1].shape[1] > 1:
+            s = level_sums[-1]
+            level_sums.append(add(s[:, 0::2], s[:, 1::2]))
+        lv = w >> 12
+        starts = lv > 0
+        ids = plan.chunk_run0[c0:c1].long()[:, None] + torch.cumsum(starts.long(), 1) - 1
+        ci, pos = torch.nonzero(starts, as_tuple=True)
+        v = lv[ci, pos] - 1
+        for level in v.unique().tolist():
+            sel = v == level
+            run_vals[ids[ci[sel], pos[sel]]] = level_sums[level][ci[sel], pos[sel] >> level]
+    rp = plan.row_ptr.long()
+    counts = rp[1:] - rp[:-1]
+    e = plan.row_runs.long()
+    zero_t = torch.full((plan.n_out,), zero, dtype=carrier)
+    total, part = zero_t.clone(), zero_t.clone()
+    for k in range(int(counts.max())):
+        has = counts > k
+        idx = (rp[:-1] + k).clamp(max=max(e.numel() - 1, 0))
+        opens = has & (e[idx] < 0)
+        total = torch.where(opens, add(total, part), total)
+        part = torch.where(opens, zero_t, part)
+        part = torch.where(has, add(part, run_vals[e[idx] & 0x7FFFFFFF]), part)
+    dp = torch.where(counts > 0, add(total, part), total)
+    out = dp[:plan.n_final].clone()
+    ident = _SEGMENT_IDENTITY[_SEGMENT_REDUCE[add], carrier]
+    for owner, k0, k1 in plan.owners.tolist():
+        seg = torch.tensor(ident, dtype=carrier)
+        for k in range(k0, k1):
+            seg = add(seg, dp[op.base_pad + k])
+        out[owner] = add(dp[owner], seg)
+    return out
 
 
 @pytest.mark.parametrize("matrix", ["hub_row", "pieces", "virtual", "multi_slab"])
 def test_kernel_model_equals_plain(matrix):
-    """The run table drives the kernel's arithmetic to the plain version's
-    bits, plus_times included."""
+    """The plan drives the kernel's arithmetic to the plain version's bits,
+    plus_times included."""
     for name in NAMES:
         sr = get_semiring(name)
         coo = MATRICES[matrix](tf)
@@ -330,17 +334,109 @@ def test_kernel_model_equals_plain(matrix):
         assert got.dtype == want.dtype and torch.equal(got, want), name
 
 
+@pytest.mark.parametrize("cap", [1, 3])
+def test_kernel_model_equals_plain_with_split_items(cap, monkeypatch):
+    """With a small chunk cap every (panel, lane group) is cut over several
+    blocks, each computing the group's products again: the same bits."""
+    monkeypatch.setattr(sell2, "BLOCK_CHUNK_CAP", cap)
+    for name in ("plus_times", "min_plus"):
+        sr = get_semiring(name)
+        coo = MATRICES["pieces"](tf)
+        op = sell2.build_sell2(coo, sr, device="cpu")
+        blocks = op.plan.blocks
+        assert int((blocks[:, 3] - blocks[:, 2]).max()) <= cap
+        assert blocks.shape[0] > len({(g, q) for g, q in blocks[:, :2].tolist()})
+        x = torch.from_numpy(_x(sr, coo.shape[1], seed=8))
+        assert torch.equal(_kernel_model(op, x, sr),
+                           sell2.dp_sell2_plain(op, x, sr, n_rows=coo.shape[0])), name
+
+
+def _runs_of_slots(plan):
+    """(chunk, position, level) of every run start in the slot words."""
+    words = plan.slot_word.long().view(-1, 128) & 0xFFFF
+    c, pos = torch.nonzero(words >> 12, as_tuple=True)
+    return c, pos, (words[c, pos] >> 12) - 1
+
+
 def test_plan_counts_every_nonzero_once():
     """Each run is one (panel, row) group, so the runs of a row cover its
-    entries once: the run widths hold every nonzero."""
+    entries once: the run widths hold every nonzero, and the row lists name
+    every run once."""
     coo = MATRICES["pieces"](tf)
     op = sell2.build_sell2(coo, PLUS_TIMES, device="cpu")
     plan = op.plan
-    assert plan.n_runs <= coo.nnz
-    assert int((1 << ((plan.run_info >> 15) & 7)).sum()) >= coo.nnz
+    _, _, level = _runs_of_slots(plan)
+    assert plan.n_runs == level.numel() <= coo.nnz
+    assert int((1 << level).sum()) >= coo.nnz
     assert int(plan.row_ptr[-1]) == plan.n_runs
-    assert sorted(plan.run_dest.tolist()) == list(range(plan.n_runs))
+    assert sorted((plan.row_runs.long() & 0x7FFFFFFF).tolist()) == list(range(plan.n_runs))
     assert plan.n_out == sum({lay.row0: lay.rows for lay in op.layouts}.values())
+
+
+@pytest.mark.parametrize("matrix", ["hub_row", "pieces", "virtual", "multi_slab"])
+def test_plan_work_items_hold_every_run_once(matrix):
+    """The work items' chunk ranges tile the chunks, none over the cap, a
+    panel's items adjacent and panels with the most chunks first; every run
+    lies aligned inside one chunk, so inside exactly one work item, and the
+    chunks' first ids count the runs."""
+    plan = sell2.build_sell2(MATRICES[matrix](tf), PLUS_TIMES, device="cpu").plan
+    blocks = plan.blocks.long()
+    size = blocks[:, 3] - blocks[:, 2]
+    assert bool((size >= 1).all()) and int(size.max()) <= sell2.BLOCK_CHUNK_CAP
+    panels = torch.unique_consecutive(blocks[:, 0])
+    assert panels.numel() == torch.unique(blocks[:, 0]).numel()
+    per_panel = torch.zeros(plan.n_panels, dtype=torch.int64).index_add_(0, blocks[:, 0], size)
+    assert torch.equal(per_panel[panels], per_panel[panels].sort(descending=True).values)
+    by_start = blocks[blocks[:, 2].argsort()]
+    n_chunks = plan.chunk_run0.numel() - 1
+    assert int(by_start[0, 2]) == 0 and int(by_start[-1, 3]) == n_chunks
+    assert torch.equal(by_start[1:, 2], by_start[:-1, 3])
+    c, pos, level = _runs_of_slots(plan)
+    assert bool((pos % (1 << level) == 0).all())
+    assert bool((pos + (1 << level) <= sell2.CHUNK_SLOTS).all())
+    assert torch.equal(plan.chunk_run0.long(),
+                       torch.searchsorted(c, torch.arange(n_chunks + 1)))
+    assert int(plan.chunk_run0[-1]) == plan.n_runs
+
+
+@pytest.mark.parametrize("matrix", ["hub_row", "pieces"])
+def test_plan_reaches_every_piece_once_from_its_owner(matrix):
+    op = sell2.build_sell2(MATRICES[matrix](tf), PLUS_TIMES, device="cpu")
+    plan, owner = op.plan, op.piece_owner.long()
+    owners = plan.owners.long()
+    pieces = sorted(k for _, k0, k1 in owners.tolist() for k in range(k0, k1))
+    assert pieces == list(range(owner.numel()))
+    for o, (row, k0, k1) in enumerate(owners.tolist()):
+        assert bool((owner[k0:k1] == row).all())
+        assert bool((plan.piece_slot[k0:k1] == o).all())
+    assert plan.piece_slot.numel() == owner.numel()
+    assert not bool(plan.owner_done.any())
+    bits = plan.owner_bits.long() & 0xFFFFFFFF
+    marked = [r for r in range(plan.n_final) if (int(bits[r >> 5]) >> (r & 31)) & 1]
+    assert marked == sorted(owners[:, 0].tolist())
+    assert plan.n_final == op.base_pad
+
+
+def test_stale_plan_is_refused():
+    """A plan whose slabs were replaced, or a plan of another operand, is
+    refused before anything reaches the kernel."""
+    sr = get_semiring("plus_times")
+    op = sell2.build_sell2(MATRICES["hub_row"](tf), sr, device="cpu")
+    other = sell2.build_sell2(MATRICES["pieces"](tf), sr, device="cpu")
+    x = torch.zeros(op.n_chunks * CHUNK_COLS)
+    before = dict(LAUNCHES)
+    for stale in (dataclasses.replace(op, slabs=list(op.slabs)),
+                  dataclasses.replace(op, plan=other.plan)):
+        with pytest.raises(ValueError, match="plan does not belong"):
+            sell2.sell2_dp_cuda(stale, x, sr)
+    assert LAUNCHES == before
+
+
+def test_kernel_constants_match_plan():
+    """The kernel source's lane group and chunk cap are the plan's."""
+    src = (Path(sell2.__file__).parent / "csrc" / "sell2.cu").read_text()
+    assert f"kGroupLanes = {sell2.GROUP_LANES};" in src
+    assert f"kBlockChunkCap = {sell2.BLOCK_CHUNK_CAP};" in src
 
 
 def test_spmv_gold_gate_on_cpu():
