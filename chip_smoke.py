@@ -89,8 +89,10 @@ result. Phases:
 17. SpMM kernel times at the full-width points: the median of five 20-call
    windows, the plain version, torch.sparse.mm on a CSR tensor (cuSPARSE,
    f32 plus_times only) and the bound;
-18. the sell kernels (phase A and the gather-reduce level) against the
-   plain dp: all seven semirings on the matrices of tests/test_torch_sell.py
+18. the sell kernels (the fused depth-0 kernel and the gather-reduce level)
+   against their plain versions, the fused kernel alone against
+   fused_plain and the whole dp against dp_sell_plain: all seven semirings
+   on the matrices of tests/test_torch_sell.py
    (power_law_coo(1500, 9000, seed=4), a 400-entry hub row, two or more
    slabs at slab_nnz=8000, empty rows and a duplicate) and the gate's
    random_coo(1138, 1138, 4054, seed=0), then min_plus and or_and on
@@ -102,7 +104,7 @@ result. Phases:
    through make_spmv_problem and benchmark_spmv with variant="sell",
    gold-gated in f32, with the seconds of its NumPy build;
 20. sssp and bfs with variant="sell" on banded_coo(1 << 16, 63, seed=1),
-   one phase-A launch a step, certified as in phase 3;
+   one sell_fused launch a step, certified as in phase 3;
 21. the CLI: the 1 << 16 band and the gate's matrix written with write_mtx
    into a temporary directory, then the nine commands run in process as
    ``python -m sparseharness_tpu_torch.cli <app>`` runs them (spmv and sssp
@@ -111,11 +113,14 @@ result. Phases:
    sell on the small matrix), every return code 0, every JSONL row parsed
    and none gold-checked incorrect, the band's spmv and sssp rows and the
    sweep's sell row correct, and one spmv -k sell as a subprocess, correct;
-22. sell kernel times at the 1 << 18 band: the whole dp, phase A alone and
-   the levels alone (median of five 20-call windows of CUDA events), the
-   plain versions, torch.mv on a CSR tensor of the same matrix and the
-   bounds; phase A's contrib stream and the dp held against the plain
-   version bit for bit.
+22. sell kernel times at the 1 << 18 band: the whole dp, the fused
+   depth-0 launch alone and the later levels alone (median of five 20-call
+   windows of CUDA events), the plain versions, torch.mv on a CSR tensor of
+   the same matrix, the bounds and the bytes each moves by its design; the
+   fused launch's level-0 rows and the dp held against the plain versions
+   bit for bit; torch.profiler's device ms a launch of each sell kernel
+   inside the dp, which the kernels line takes for the later levels (their
+   CUDA-event time is the host's enqueue).
 
 Then the kernels line, the nvidia-smi line and, last, the ok line.
 """
@@ -1052,9 +1057,10 @@ def sell_cases(torch):
 
 
 def sell_vs_plain(torch, coo, kw, names, errs) -> int:
-    """Both sell kernels (one sell_dp_cuda call) against dp_sell_plain on
-    one matrix: bit for bit for every semiring, plus_times included, and
-    the same bits on a second call. Returns the number of comparisons."""
+    """The fused depth-0 kernel alone against fused_plain, and both sell
+    kernels (one sell_dp_cuda call) against dp_sell_plain, on one matrix:
+    bit for bit for every semiring, plus_times included, and the same bits
+    on a second call. Returns the number of comparisons."""
     from sparseharness_tpu_torch.ops import sell
     from sparseharness_tpu_torch.semiring import get_semiring
 
@@ -1065,6 +1071,12 @@ def sell_vs_plain(torch, coo, kw, names, errs) -> int:
         op = sell.build_sell(m, sr, device="cuda", **kw)
         x = random_x(torch, sr, m.shape[1], rng)
         x2d = sell.pad_x2d(op, x, sr)
+        work_ref, dp_ref = sell.fused_plain(op, x2d, sr)
+        work, dp = torch.zeros_like(work_ref), torch.zeros_like(dp_ref)
+        sell.fused_cuda(op, x2d, sr, work, dp)
+        for label, got0, ref0 in (("work", work, work_ref), ("dp", dp, dp_ref)):
+            check_kernel(torch, f"sell fused {name} ({label})", got0.view(torch.int32),
+                         ref0.view(torch.int32), None)
         got = sell.sell_dp_cuda(op, x2d, sr)
         check_same_bits(torch, f"sell {name}", got, sell.sell_dp_cuda(op, x2d, sr))
         ref = sell.dp_sell_plain(op, x, sr, n_rows=m.shape[0])
@@ -1075,10 +1087,10 @@ def sell_vs_plain(torch, coo, kw, names, errs) -> int:
                                  f"{int((got.view(torch.int32) != ref.view(torch.int32)).sum())}"
                                  " rows")
         err = check_kernel(torch, f"sell {name}", got, ref, None)
-        errs["sell_phase_a"] = max(errs["sell_phase_a"], err)
+        errs["sell_fused"] = max(errs["sell_fused"], err)
         errs["sell_level"] = max(errs["sell_level"], err)
-        del op, x2d
-    return len(names)
+        del op, x2d, work, dp, work_ref, dp_ref
+    return 2 * len(names)
 
 
 def sell_main_path(torch, coo, out):
@@ -1120,7 +1132,7 @@ def sell_main_path(torch, coo, out):
 
 
 def sell_fixpoints(torch, band, out) -> None:
-    """sssp and bfs with variant="sell" on the 1 << 16 band: one phase-A
+    """sssp and bfs with variant="sell" on the 1 << 16 band: one sell_fused
     launch a step. Certificates as phase 3's, with the plain band dp."""
     from sparseharness_tpu_torch.algorithms import bfs, sssp
     from sparseharness_tpu_torch.ops import LAUNCHES, build_operand, dp_bsr_band_plain, fold_dp
@@ -1129,14 +1141,14 @@ def sell_fixpoints(torch, band, out) -> None:
     n = band.shape[0]
 
     def run(app):
-        before = LAUNCHES["sell_phase_a"]
+        before = LAUNCHES["sell_fused"]
         t0 = time.perf_counter()
         r = app(band, 0, variant="sell")
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        if LAUNCHES["sell_phase_a"] - before != r.iterations:
-            raise AssertionError(f"{app.__name__}: {LAUNCHES['sell_phase_a'] - before} sell "
-                                 f"phase-A launches for {r.iterations} steps")
+        if LAUNCHES["sell_fused"] - before != r.iterations:
+            raise AssertionError(f"{app.__name__}: {LAUNCHES['sell_fused'] - before} sell "
+                                 f"fused launches for {r.iterations} steps")
         return r, dt
 
     r, dt = run(sssp)
@@ -1240,14 +1252,17 @@ def cli_path(torch, band, small, out) -> None:
 
 
 def sell_kernel_times(torch, op, coo, errs) -> dict:
-    """The sell kernels at the 1 << 18 band: the whole dp, phase A alone and
-    the levels alone (CUDA events), their plain versions, torch.mv on a CSR tensor of the same
-    matrix, and the bounds. Whole dp: the operand's arrays, x and the output
-    (variant_bytes) and 2 ops per nonzero. Phase A as a function: lanesel,
-    vals, blocksel and x in, the contrib stream out, one ⊗ per nonzero. The
-    levels: the contrib stream and every idx array in, the dp out, one ⊕
-    per nonzero but the first of each row. Phase A's contrib stream and the
-    dp are held against the plain version bit for bit first."""
+    """The sell kernels at the 1 << 18 band: the whole dp, the fused depth-0
+    launch alone and the later levels alone (CUDA events), their plain
+    versions, torch.mv on a CSR tensor of the same matrix, the bounds and
+    the bytes each moves by its design. Whole dp: the operand's arrays, x
+    and the output (variant_bytes), 2 ops per nonzero. The fused launch:
+    its level-0 idx rows, lanesel, vals, blocksel and x in, the level-0
+    rows out (fused_traffic), one ⊗ per nonzero and one ⊕ per nonzero but
+    the first of each level-0 output. The later levels: the level-0 rows
+    and their idx arrays in, the dp out, one ⊕ per valid idx slot past a
+    run's first. The fused launch's level-0 rows and the dp are held
+    against the plain versions bit for bit first."""
     from sparseharness_tpu_torch.harness import device_hbm_bandwidth, variant_bytes
     from sparseharness_tpu_torch.ops import sell
     from sparseharness_tpu_torch.semiring import PLUS_TIMES
@@ -1257,45 +1272,72 @@ def sell_kernel_times(torch, op, coo, errs) -> dict:
     sr = PLUS_TIMES
     x = random_x(torch, sr, coo.shape[1], np.random.default_rng(16))
     x2d = sell.pad_x2d(op, x, sr)
-    work = torch.empty((op.work_rows, 128), dtype=torch.float32, device="cuda")
-    dp = torch.empty(op.n_pad, dtype=torch.float32, device="cuda")
-    sell.phase_a_cuda(op, x2d, sr, work)
-    contribs = [sell.phase_a_plain(slab, x2d, sr) for slab in op.slabs]
-    ta_rows = op.lanesel.shape[0]
-    errs["sell_phase_a"] = max(errs["sell_phase_a"], check_kernel(
-        torch, "sell phase A at full width", work[:ta_rows], torch.cat(contribs), None))
+    work_ref, dp_ref = sell.fused_plain(op, x2d, sr)
+    work, dp = torch.zeros_like(work_ref), torch.zeros_like(dp_ref)
+    sell.fused_cuda(op, x2d, sr, work, dp)
+    errs["sell_fused"] = max(errs["sell_fused"], check_kernel(
+        torch, "sell fused launch at full width", work, work_ref, None), check_kernel(
+        torch, "sell fused launch at full width (dp)", dp, dp_ref, None))
     sell.levels_cuda(op, sr, work, dp)
     errs["sell_level"] = max(errs["sell_level"], check_kernel(
         torch, "sell dp at full width", dp, sell.dp_sell_plain(op, x, sr, n_rows=n), None))
+    del work_ref, dp_ref
+
+    # the later levels' inputs: the level-0 rows and their idx arrays; their
+    # operations: one ⊕ per valid idx slot past each output's first
+    l0_rows = sum(lay.levels[0].d_out for lay in op.layouts if not lay.levels[0].final)
+    later_idx, later_ops = 0, 0
+    for slab, lay in zip(op.slabs, op.layouts):
+        for li in range(1, len(lay.levels)):
+            arr = slab[f"idx{li}"].cpu().numpy()
+            later_idx += arr.shape[0]
+            for (w, s0, s1) in lay.levels[li].regions:
+                valid = arr[s0:s1] < lay.levels[li - 1].d_out
+                later_ops += int(valid.sum()) - int(valid.reshape(-1, w, 128).any(1).sum())
+    level_in = l0_rows * 128 * 4 + later_idx * 128 * 4
+    traffic = sell.fused_traffic(op)
+    fused_ops = 2 * coo.nnz - traffic["live_outputs"]
+
+    level0 = [sell.level_plain(sell.phase_a_plain(slab, x2d, sr), slab["idx0"],
+                               lay.levels[0], sr) for slab, lay in zip(op.slabs, op.layouts)]
 
     def plain_levels():
-        for slab, lay, src in zip(op.slabs, op.layouts, contribs):
-            for li, level in enumerate(lay.levels):
-                src = sell.level_plain(src, slab[f"idx{li}"], level, sr)
+        for slab, lay, src in zip(op.slabs, op.layouts, level0):
+            for li in range(1, len(lay.levels)):
+                src = sell.level_plain(src, slab[f"idx{li}"], lay.levels[li], sr)
 
     f32 = 4
-    contrib_bytes = ta_rows * 128 * f32
-    rows_used = int(np.count_nonzero(np.bincount(coo.rows, minlength=n)))
+    level_design = (later_idx * 128 * f32 + op.work_rows * 128 * f32
+                    + (op.work_rows - l0_rows) * 128 * f32 + op.n_pad * f32)
     res = {
         "dp": {**bound(variant_bytes("sell", op, x.numel() * f32, n * f32), 2 * coo.nnz, bw),
+               "design_bytes": traffic["staged_bytes"] + level_design,
                **time_windows(torch, lambda: sell.sell_dp_cuda(op, x2d, sr)),
                "plain_ms": time_ms(torch, lambda: sell.dp_sell_plain(op, x, sr, n_rows=n), 3)},
-        "sell_phase_a": {
-            **bound(tensor_bytes(op.lanesel, op.vals, op.blocksel, x2d) + contrib_bytes,
-                    coo.nnz, bw),
-            **time_windows(torch, lambda: sell.phase_a_cuda(op, x2d, sr, work)),
-            "plain_ms": time_ms(torch, lambda: [sell.phase_a_plain(s, x2d, sr)
-                                                for s in op.slabs], 3)},
+        "sell_fused": {
+            **bound(traffic["bound_bytes"], fused_ops, bw),
+            "design_bytes": traffic["staged_bytes"], "in_place_bytes": traffic["in_place_bytes"],
+            "traffic": traffic,
+            **time_windows(torch, lambda: sell.fused_cuda(op, x2d, sr, work, dp)),
+            "plain_ms": time_ms(torch, lambda: sell.fused_plain(op, x2d, sr), 3)},
         "sell_level": {
-            **bound(tensor_bytes(op.idx) + contrib_bytes + op.n_pad * f32,
-                    coo.nnz - rows_used, bw),
+            **bound(level_in + op.n_pad * f32, later_ops, bw),
+            "design_bytes": level_design,
             **time_windows(torch, lambda: sell.levels_cuda(op, sr, work, dp)),
             "plain_ms": time_ms(torch, plain_levels, 3)},
         "depth_rows": list(op.depth_rows), "work_rows": op.work_rows,
+        # device ms per launch inside the dp, from torch.profiler: the later
+        # levels' CUDA-event time above is the host's, when it enqueues
+        # slower than the card runs them
+        "profiler": stage_ms(torch, lambda: sell.sell_dp_cuda(op, x2d, sr),
+                             r"sell_(fused|level)_kernel"),
     }
+    levels = res["profiler"].get("sell_level_kernel")
+    if levels:
+        res["sell_level"]["device_ms"] = levels["ms"] * (len(op.depth_rows) - 1)
     csr = csr_of(torch, coo)
     res["library_ms"] = time_ms(torch, lambda: torch.mv(csr, x), 20)
-    del csr, work, dp, contribs
+    del csr, work, dp, level0
     return res
 
 
@@ -1885,7 +1927,7 @@ def main() -> int:
         stimes = spmm_kernel_times(torch, coo, bcoo)
         f.update(card=card, nvidia_smi=smi, times=stimes)
 
-    lerrs = {"sell_phase_a": 0.0, "sell_level": 0.0}
+    lerrs = {"sell_fused": 0.0, "sell_level": 0.0}
     with Phase("sell_kernel_vs_plain_small") as f:
         f["comparisons"] = sum(sell_vs_plain(torch, m, kw, SEMIRINGS, lerrs)
                                for m, kw in sell_cases(torch))
@@ -1911,7 +1953,7 @@ def main() -> int:
         f.update(card=card, nvidia_smi=smi, runs=cli_lines)
     llaunches = dict(LAUNCHES)
     emit({"phase": "main_path_sell_launches", "launches": llaunches})
-    for kernel in ("sell_phase_a", "sell_level"):
+    for kernel in ("sell_fused", "sell_level"):
         if llaunches[kernel] <= 0:
             raise AssertionError(f"the {kernel} kernel never launched on the sell path")
         launches[kernel] = llaunches[kernel]
@@ -1972,12 +2014,16 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
-    for name, line in (("sell_phase_a", 330), ("sell_level", 361)):
+    # sell_fused also replaces level 0 of pallas_sell.py:361, sell_level its
+    # depths 1 and more; the later levels' time is the card's (profiler),
+    # since the host enqueues their small launches slower than they run
+    for name, line in (("sell_fused", 330), ("sell_level", 361)):
         t = ltimes[name]
         kernels.append({
             "name": name, "route": "cuda", "source": "sparseharness_tpu_torch/ops/csrc/sell.cu",
             "replaces": f"sparseharness_tpu/ops/pallas_sell.py:{line}",
-            "launches": launches[name], "max_abs_err": lerrs[name], "ms": t["ms"],
+            "launches": launches[name], "max_abs_err": lerrs[name],
+            "ms": t.get("device_ms", t["ms"]),
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": ltimes["library_ms"],
         })

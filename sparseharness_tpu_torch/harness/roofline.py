@@ -63,9 +63,9 @@ def variant_bytes(variant: str, operand, x_bytes: int, out_bytes: int) -> int:
     that least traffic.
 
     ``sell``: every array of its slabs (lanesel, vals, blocksel and each
-    level's idx) once, x once and the output once. The contrib stream and
-    the level outputs are intermediates that a fused kernel need not write,
-    and the launch table is the kernels' own bookkeeping."""
+    level's idx) once, x once and the output once. The level outputs are
+    intermediates (the fused depth-0 kernel writes no contrib stream), and
+    the launch tables are the kernels' own bookkeeping."""
     if variant == "sell2":
         operand = [operand.slabs, operand.piece_owner, operand.virt_blocks]
     elif variant == "sell":

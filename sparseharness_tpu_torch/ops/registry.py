@@ -193,11 +193,11 @@ register_variant(KernelVariant(
     name="sell",
     build=lambda coo, sr, g, device: sell.build_sell(coo, sr, device=device),
     dp=sell.dp_sell,
-    description="The JAX package's gen-5 design record: a phase-A contrib "
-                "stream packed column-block-major, then gather-reduce "
-                "levels; two CUDA kernels, one phase-A launch and one "
-                "launch per level depth over every row slab. Not in the "
-                "auto chain, as in JAX",
+    description="The JAX package's gen-5 design record: a phase-A stream "
+                "packed column-block-major, then gather-reduce levels; two "
+                "CUDA kernels, one fused launch for every row slab's phase A "
+                "and first level (no contrib stream) and one launch per "
+                "later level depth. Not in the auto chain, as in JAX",
 ))
 
 register_variant(KernelVariant(

@@ -4,10 +4,10 @@ The operand is the JAX package's: per row slab of at most ``slab_nnz``
 nonzeros, a phase-A stream that packs entries column-block-major (each
 stream sublane holds entries of one 128-wide x block, an entry at lane
 ``row % 128``) and a chain of gather-reduce levels whose final level puts
-the slab's rows in canonical order. The build is a copy of the JAX NumPy
-body, so its arrays equal JAX's, and it refuses what JAX refuses but for
-the TPU backend guard, which names a Mosaic limit a CUDA kernel does not
-have.
+the slab's rows in canonical order. The build makes JAX's arrays with
+array arithmetic where JAX loops over entries, so its arrays equal JAX's,
+and it refuses what JAX refuses but for the TPU backend guard, which names
+a Mosaic limit a CUDA kernel does not have.
 
 - **Phase A** (JAX ``_phase_a_call``): ``contrib[s, j] = x2d[blocksel[s],
   lanesel[s, j]] ⊗ vals[s, j]``.
@@ -17,9 +17,10 @@ have.
   t = 0..w−1, the regions' outputs concatenated.
 
 On a CUDA tensor :func:`dp_sell` launches the two kernels of
-``csrc/sell.cu``: one phase-A launch over every slab's stream, then one
-launch per level depth over every slab that has that level, driven by a
-launch table built once with the operand. On a CPU tensor it runs
+``csrc/sell.cu``: one fused launch computes every slab's level 0 straight
+from the phase-A stream, so the contrib stream is never written, then one
+level launch per later depth covers every slab that has that level. Both
+are driven by tables built once with the operand. On a CPU tensor it runs
 :func:`dp_sell_plain`, which does the same arithmetic slab by slab in
 torch with the same ⊕ order.
 """
@@ -53,6 +54,16 @@ W_MAX = W_SET[-1]
 PAD_BLOWUP_LIMIT = 8.0
 #: int32 words of one launch-table entry, as csrc/sell.cu:EntryField
 ENTRY_WORDS = 24
+#: int32 words of one fused-launch block, as csrc/sell.cu:GroupField
+GROUP_WORDS = 12
+G_WIN, G_WIN_ROWS = 8, 9
+#: lanes of one fused-launch block, as csrc/sell.cu:kGroupLanes; every
+#: level keeps the lane, so lane slices are independent
+GROUP_LANES = 32
+#: idx rows of one fused-launch block, a run's slots times its output rows
+GROUP_SLOTS = 512
+#: most stream rows a fused-launch block stages (72 KB of f32 products)
+STAGE_ROWS = 576
 
 
 class _LevelLayout(NamedTuple):
@@ -82,7 +93,9 @@ class SellOperand(NamedTuple):
     phase-A stream concatenated, ``idx`` every (slab, level) idx array
     ordered by level depth, then slab. ``table`` holds one ENTRY_WORDS row
     per (slab, level), same order, and ``depth_entries`` the first entry
-    of each depth (one more than the depths)."""
+    of each depth (one more than the depths). ``groups`` holds one
+    GROUP_WORDS row per block of the fused depth-0 launch, and
+    ``stage_rows`` the most stream rows one of them stages."""
 
     slabs: List[dict]
     layouts: Tuple[_SlabLayout, ...]
@@ -94,8 +107,10 @@ class SellOperand(NamedTuple):
     idx: torch.Tensor           # int32 (sum t_src, 128)
     table: torch.Tensor         # int32 (E, ENTRY_WORDS)
     depth_entries: Tuple[int, ...]
-    depth_rows: Tuple[int, ...]  # output rows of each depth's launch
-    work_rows: int              # contrib rows + every non-final level's rows
+    depth_rows: Tuple[int, ...]  # output rows of each depth
+    work_rows: int              # every non-final level's output rows
+    groups: torch.Tensor        # int32 (G, GROUP_WORDS)
+    stage_rows: int
 
     @property
     def n_pad(self) -> int:
@@ -174,11 +189,9 @@ def build_sell(coo: COO, sr: Semiring, xrows_max: int = XROWS_MAX,
         grp_id[grp_starts[1:]] = 1
         grp_id = np.cumsum(grp_id)
         pos = np.arange(m, dtype=np.int64) - grp_starts[grp_id]
-        counts = np.zeros((ob.max(initial=0) + 1 if m else 1) * LANES, np.int64)
-        np.add.at(counts, group, 1)
+        counts = np.bincount(group, minlength=(ob.max(initial=0) + 1 if m else 1) * LANES)
         counts2d = counts.reshape(-1, LANES)
         s_per_block = counts2d.max(axis=1)
-        blocks_used = np.nonzero(s_per_block)[0]
         block_off = np.zeros(len(s_per_block) + 1, np.int64)
         np.cumsum(s_per_block, out=block_off[1:])
         t_real = int(block_off[-1])
@@ -193,92 +206,16 @@ def build_sell(coo: COO, sr: Semiring, xrows_max: int = XROWS_MAX,
         sub = block_off[ob] + pos      # entry sublane in the contrib stream
         lanesel = np.zeros((t_a, LANES), np.int32)
         vals_a = np.full((t_a, LANES), zero, np_dtype)
-        blocksel = np.zeros((t_a, 1), np.int32)
-        for b in blocks_used:
-            blocksel[block_off[b]:block_off[b + 1], 0] = b
+        blocksel = np.repeat(np.arange(len(s_per_block), dtype=np.int32),
+                             s_per_block)[:, None]
+        blocksel = np.concatenate([blocksel, np.zeros((t_a - t_real, 1), np.int32)])
         lanesel[sub, ol] = (cols_e[order] % LANES).astype(np.int32)
         vals_a[sub, ol] = vals_e[order]
         total_slots += t_a * LANES
 
-        # ---- phase B: per-row slot lists (contrib sublanes), lane = r%128
-        row_local = rows_e[order] - r0
-        slots = [[] for _ in range(r1 - r0)]
-        for rl, sb in zip(row_local, sub):
-            slots[rl].append(int(sb))
-
-        levels = []
         arrays = {"lanesel": lanesel, "vals": vals_a, "blocksel": blocksel}
-        src_sublanes = t_a
-        li = 0
-        while True:
-            n_slots = [len(sl) for sl in slots]
-            done = all(k <= 1 for k in n_slots)
-            if done:
-                d_out = (r1 - r0) // LANES
-                t_src = max(round_up(src_sublanes + 1, 8), d_out)
-                t_src = round_up(t_src, 8)
-                idx = np.full((t_src, LANES), t_src - 1, np.int32)
-                for rl, sl in enumerate(slots):
-                    if sl:
-                        idx[rl // LANES, rl % LANES] = sl[0]
-                levels.append(_LevelLayout(
-                    regions=((1, 0, d_out),), t_src=t_src, d_out=d_out,
-                    final=True,
-                ))
-                arrays[f"idx{li}"] = idx
-                total_slots += t_src * LANES
-                break
-
-            runs = []  # (row_local, [slot sublanes], w)
-            for rl, sl in enumerate(slots):
-                if not sl:
-                    continue
-                k = len(sl)
-                w = _run_width(k)
-                for q in range(0, k, w):
-                    runs.append((rl, sl[q:q + w], w))
-            regions = []
-            sub_cursor = 0
-            for w in W_SET:
-                w_runs = [r for r in runs if r[2] == w]
-                if not w_runs:
-                    continue
-                per_lane = np.zeros(LANES, np.int64)
-                for (rl, _, _) in w_runs:
-                    per_lane[rl % LANES] += 1
-                depth = int(per_lane.max())
-                region_rows = round_up(depth * w, 8 * w)
-                regions.append((w, sub_cursor, sub_cursor + region_rows))
-                sub_cursor += region_rows
-            t_idx = max(sub_cursor, 8)
-            t_src = round_up(max(src_sublanes + 1, t_idx), 8)
-            idx = np.full((t_src, LANES), t_src - 1, np.int32)
-            reg_of_w = {w: (start, end) for (w, start, end) in regions}
-            out_of_w = {}
-            oc = 0
-            for (w, start, end) in regions:
-                out_of_w[w] = oc
-                oc += (end - start) // w
-            per_lane = {w: np.zeros(LANES, np.int64) for (w, _, _) in regions}
-            new_slots = [[] for _ in range(r1 - r0)]
-            for (rl, sl, w) in runs:
-                j = rl % LANES
-                p = int(per_lane[w][j])
-                per_lane[w][j] += 1
-                start, _ = reg_of_w[w]
-                s0 = start + p * w
-                for t, sb in enumerate(sl):
-                    idx[s0 + t, j] = sb
-                new_slots[rl].append(out_of_w[w] + p)
-            levels.append(_LevelLayout(
-                regions=tuple(regions), t_src=t_src, d_out=oc, final=False,
-            ))
-            arrays[f"idx{li}"] = idx
-            total_slots += t_src * LANES
-            slots = new_slots
-            src_sublanes = oc
-            li += 1
-
+        levels = _build_levels(rows_e[order] - r0, sub, r1 - r0, t_a, arrays)
+        total_slots += sum(lv.t_src for lv in levels) * LANES
         slabs.append(arrays)
         layouts.append(_SlabLayout(
             row0=r0, rows=r1 - r0, t_a=t_a, levels=tuple(levels),
@@ -293,23 +230,104 @@ def build_sell(coo: COO, sr: Semiring, xrows_max: int = XROWS_MAX,
     return assemble(slabs, tuple(layouts), xrows, n, device)
 
 
+def _build_levels(row_local: np.ndarray, sub: np.ndarray, rows: int, t_a: int,
+                  arrays: dict) -> Tuple[_LevelLayout, ...]:
+    """The gather-reduce levels of one slab, as the JAX build's per-row
+    loops make them, in array arithmetic: ``row_local`` and ``sub`` give
+    each entry's row in the slab and its contrib sublane, in phase-A order.
+    Adds ``idx{li}`` to ``arrays``.
+
+    A row's slots are its entries' sublanes in phase-A order (a stable sort
+    by row). Each level cuts every row with slots into runs of its width w
+    (the least of W_SET that holds the row, else W_MAX); a run's rank p
+    among the runs of its width and lane, in row order, places it at
+    sublanes start_w + p·w of its region, and its output, out_w + p,
+    becomes the row's slot in the next level. The level where no row holds
+    more than one slot is final: it puts each row's slot at (row / 128,
+    row % 128)."""
+    by_row = np.argsort(row_local, kind="stable")
+    slot = sub[by_row].astype(np.int64)
+    count = np.bincount(row_local, minlength=rows)
+    lane_of_row = np.arange(rows) % LANES
+    widths = np.asarray(W_SET)
+    levels = []
+    src_sublanes = t_a
+    li = 0
+    while True:
+        if count.max(initial=0) <= 1:
+            d_out = rows // LANES
+            t_src = round_up(max(round_up(src_sublanes + 1, 8), d_out), 8)
+            idx = np.full((t_src, LANES), t_src - 1, np.int32)
+            has = np.nonzero(count)[0]
+            idx[has // LANES, has % LANES] = slot
+            levels.append(_LevelLayout(regions=((1, 0, d_out),), t_src=t_src, d_out=d_out,
+                                       final=True))
+            arrays[f"idx{li}"] = idx
+            return tuple(levels)
+
+        wi_row = np.minimum(np.searchsorted(widths, count), len(W_SET) - 1)
+        w_row = widths[wi_row]
+        n_runs = np.where(count > 0, -(-count // w_row), 0)
+        run_row = np.repeat(np.arange(rows), n_runs)          # runs in row order
+        run_key = wi_row[run_row] * LANES + lane_of_row[run_row]
+        per_key = np.bincount(run_key, minlength=len(W_SET) * LANES)
+        key_start = np.zeros(len(per_key) + 1, np.int64)
+        np.cumsum(per_key, out=key_start[1:])
+        by_key = np.argsort(run_key, kind="stable")
+        rank = np.empty(len(run_key), np.int64)
+        rank[by_key] = np.arange(len(run_key)) - key_start[run_key[by_key]]
+
+        regions = []
+        region_start = np.zeros(len(W_SET), np.int64)
+        out_start = np.zeros(len(W_SET), np.int64)
+        sub_cursor, oc = 0, 0
+        for wi, w in enumerate(W_SET):
+            depth = int(per_key[wi * LANES:(wi + 1) * LANES].max())
+            if depth == 0:
+                continue
+            region_rows = round_up(depth * w, 8 * w)
+            regions.append((w, sub_cursor, sub_cursor + region_rows))
+            region_start[wi], out_start[wi] = sub_cursor, oc
+            sub_cursor += region_rows
+            oc += region_rows // w
+        t_src = round_up(max(src_sublanes + 1, max(sub_cursor, 8)), 8)
+        idx = np.full((t_src, LANES), t_src - 1, np.int32)
+
+        # each slot's run (the row's first run + position // w) and place in it
+        first_run = np.zeros(rows + 1, np.int64)
+        np.cumsum(n_runs, out=first_run[1:])
+        slot_row = np.repeat(np.arange(rows), count)
+        row_ptr = np.zeros(rows + 1, np.int64)
+        np.cumsum(count, out=row_ptr[1:])
+        pos = np.arange(len(slot)) - row_ptr[slot_row]
+        w_slot = w_row[slot_row]
+        run = first_run[slot_row] + pos // w_slot
+        wi_slot = wi_row[slot_row]
+        idx[region_start[wi_slot] + rank[run] * w_slot + pos % w_slot,
+            lane_of_row[slot_row]] = slot
+        levels.append(_LevelLayout(regions=tuple(regions), t_src=t_src, d_out=oc, final=False))
+        arrays[f"idx{li}"] = idx
+        slot = out_start[wi_row[run_row]] + rank     # next level: one slot per run
+        count = n_runs
+        src_sublanes = oc
+        li += 1
+
+
 def launch_table(layouts) -> Tuple[np.ndarray, Tuple[int, ...], Tuple[int, ...], int,
                                    List[Tuple[int, int]]]:
     """The level launch table of csrc/sell.cu, from the layouts alone.
 
-    Entries are (slab, level) pairs ordered by level depth, then slab. The
-    sources and outputs of non-final levels live in one work buffer of
-    128-wide rows: every slab's contrib stream first (slab order), then
-    each non-final level's output in entry order; a final level writes the
-    slab's rows at row0 / 128 of the dp. Returns (table, first entry of
-    each depth, output rows of each depth, work rows, and per entry its
-    (slab, level))."""
-    a_off, off = [], 0
-    for lay in layouts:
-        a_off.append(off)
-        off += lay.t_a
+    Entries are (slab, level) pairs ordered by level depth, then slab, so
+    entry si is slab si's level 0. A level-0 entry's source is the slab's
+    phase-A stream: its first row in the flat lanesel / vals / blocksel and
+    its t_a rows. The outputs of non-final levels live in one work buffer
+    of 128-wide rows, in entry order from row 0; a later level reads its
+    source there, and a final level writes the slab's rows at row0 / 128 of
+    the dp. Returns (table, first entry of each depth, output rows of each
+    depth, work rows, and per entry its (slab, level))."""
+    a_off = np.concatenate([[0], np.cumsum([lay.t_a for lay in layouts])]).astype(int)
     depths = max(len(lay.levels) for lay in layouts)
-    out_of, work = {}, off
+    out_of, work = {}, 0
     order = [(si, li) for li in range(depths) for si, lay in enumerate(layouts)
              if li < len(lay.levels)]
     for si, li in order:
@@ -348,12 +366,51 @@ def launch_table(layouts) -> Tuple[np.ndarray, Tuple[int, ...], Tuple[int, ...],
     return table, tuple(depth_entries), tuple(depth_rows), work, order
 
 
+def fused_groups(table: np.ndarray, idx0s, group_slots: int = GROUP_SLOTS,
+                 stage_rows: int = STAGE_ROWS) -> Tuple[np.ndarray, int]:
+    """The blocks of the fused depth-0 launch of csrc/sell.cu, from the
+    launch table and each slab's idx0 array (NumPy).
+
+    Each level-0 region (w, s0, s1) is cut into groups of
+    max(1, group_slots // w) consecutive output rows, and each group into
+    GROUP_LANES-wide lane slices: one block each. A block's window is the
+    span of stream rows its valid idx slots (those below t_a) name. It is
+    staged in shared memory when it holds at most ``stage_rows`` rows and
+    at most twice the block's slots per lane (else staging would read more
+    than the gather); otherwise the block gathers in place. Returns the
+    (blocks, GROUP_WORDS) table and the most rows any block stages."""
+    rows = []
+    for si, idx0 in enumerate(idx0s):
+        e = table[si]
+        t_a, src = int(e[3]), int(e[2])
+        for k in range(int(e[7])):
+            w, s0, oc0, oc1 = (int(v) for v in e[8 + 4 * k:12 + 4 * k])
+            nq_max = max(1, group_slots // w)
+            for q0 in range(0, oc1 - oc0, nq_max):
+                nq = min(nq_max, oc1 - oc0 - q0)
+                block = idx0[s0 + q0 * w:s0 + (q0 + nq) * w].reshape(
+                    nq * w, LANES // GROUP_LANES, GROUP_LANES)
+                valid = block < t_a
+                lo = np.where(valid, block, t_a).min(axis=(0, 2))
+                hi = np.where(valid, block, -1).max(axis=(0, 2))
+                for sl in range(LANES // GROUP_LANES):
+                    span = int(hi[sl] - lo[sl] + 1)
+                    staged = 0 < span <= min(stage_rows, 2 * nq * w)
+                    rows.append((int(e[4]) + s0 + q0 * w, w, nq, int(e[5]) + oc0 + q0,
+                                 int(e[6]), sl * GROUP_LANES, src, t_a,
+                                 src + int(lo[sl]) if staged else 0, span if staged else 0,
+                                 0, 0))
+    groups = np.asarray(rows, np.int32).reshape(-1, GROUP_WORDS)
+    return groups, int(groups[:, G_WIN_ROWS].max(initial=0))
+
+
 def assemble(slab_arrays, layouts, xrows: int, n_rows: int,
              device: torch.device) -> SellOperand:
     """The operand from per-slab NumPy arrays (int32 indices, values in the
     carrier type): the flat tensors on ``device``, each slab's arrays as
-    views of them, and the launch table."""
+    views of them, and the launch tables."""
     table, depth_entries, depth_rows, work, order = launch_table(layouts)
+    groups, stage_rows = fused_groups(table, [a["idx0"] for a in slab_arrays])
 
     def flat(parts):
         return torch.from_numpy(np.concatenate([np.asarray(a) for a in parts])).to(device)
@@ -376,7 +433,18 @@ def assemble(slab_arrays, layouts, xrows: int, n_rows: int,
         lanesel=lanesel, vals=vals, blocksel=blocksel, idx=idx,
         table=torch.from_numpy(table).to(device), depth_entries=depth_entries,
         depth_rows=depth_rows, work_rows=work,
+        groups=torch.from_numpy(groups).to(device), stage_rows=stage_rows,
     )
+
+
+def regroup(op: SellOperand, group_slots: int = GROUP_SLOTS,
+            stage_rows: int = STAGE_ROWS) -> SellOperand:
+    """``op`` with its fused-launch blocks cut anew: ``stage_rows`` 0 makes
+    every block gather in place. For measuring the kernel's designs."""
+    groups, most = fused_groups(op.table.cpu().numpy(),
+                                [slab["idx0"].cpu().numpy() for slab in op.slabs],
+                                group_slots, stage_rows)
+    return op._replace(groups=torch.from_numpy(groups).to(op.table.device), stage_rows=most)
 
 
 def pad_x2d(op: SellOperand, x: torch.Tensor, sr: Semiring) -> torch.Tensor:
@@ -461,28 +529,113 @@ def _launch_args(op: SellOperand, sr: Semiring):
     return index, codes, torch.cuda.current_stream(dev).cuda_stream
 
 
-def phase_a_cuda(op: SellOperand, x2d: torch.Tensor, sr: Semiring,
-                 work: torch.Tensor) -> None:
-    """Launch the phase-A kernel once over every slab's stream: the first
-    rows of ``work`` become the contrib stream."""
-    _check(op, sr, x2d, work)
-    if x2d.shape != (op.xrows, LANES) or work.shape != (op.work_rows, LANES):
-        raise ValueError(f"x2d must be ({op.xrows}, {LANES}) and work ({op.work_rows}, "
-                         f"{LANES}), got {tuple(x2d.shape)} and {tuple(work.shape)}")
+def fused_plain(op: SellOperand, x2d: torch.Tensor,
+                sr: Semiring) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What the fused launch writes, in torch: each slab's level 0 of its
+    phase-A products, ``level_plain(phase_a_plain(slab), idx0)``, at the
+    rows the launch table gives it in a zeroed work buffer and dp."""
+    carrier = _carrier(sr)[0]
+    work = torch.zeros((op.work_rows, LANES), dtype=carrier, device=x2d.device)
+    dp = torch.zeros((op.n_pad // LANES, LANES), dtype=carrier, device=x2d.device)
+    for si, (slab, lay) in enumerate(zip(op.slabs, op.layouts)):
+        level = lay.levels[0]
+        out0 = int(op.table[si, 5])
+        (dp if level.final else work)[out0:out0 + level.d_out] = level_plain(
+            phase_a_plain(slab, x2d, sr), slab["idx0"], level, sr)
+    return work, dp.reshape(-1)
+
+
+def fused_traffic(op: SellOperand) -> dict:
+    """Bytes of the fused depth-0 launch, counted from the operand.
+
+    ``bound_bytes``: what the function must move for this operand's data,
+    each input once: the level-0 idx rows it reads, the 32-byte sectors of
+    lanesel and vals that hold a slot some valid idx names, the blocksel
+    entries of those rows (not the stream's pad rows and lanes), x2d, and
+    the level-0 outputs. ``array_bytes``: the same with every stream row. ``staged_bytes`` and ``in_place_bytes``: what the launch moves
+    by its access pattern, as the blocks are cut (``staged_bytes``) and with
+    every block gathering in place (``in_place_bytes``), in 32-byte sectors
+    where a load is not a whole row: idx and the outputs as rows; a staged
+    block its window's lanesel, vals and blocksel rows once; a block in
+    place, per warp step (one idx row of 32 lanes), each distinct sector of
+    lanesel, vals and blocksel that its valid slots touch. x2d (at most 1 MB,
+    L2-resident) is counted once in each. Also the distinct stream rows and
+    lanesel sectors per warp step, the staged windows' rows, and the
+    level-0 outputs with at least one valid slot."""
+    idx = op.idx.cpu().numpy()
+    groups = op.groups.cpu().numpy().astype(np.int64)
+    item = op.vals.element_size()
+    x_bytes = op.xrows * LANES * item
+    idx_b = out_b = staged = in_place = 0
+    steps = rows = sectors = live_out = 0
+    for i0, w, nq, _, _, lane0, _, t_a, _, win_rows, _, _ in groups:
+        ix = idx[i0:i0 + nq * w, lane0:lane0 + GROUP_LANES].astype(np.int64)
+        valid = ix < t_a
+        idx_b += ix.size * 4
+        out_b += nq * GROUP_LANES * item
+        # distinct (row, sector) keys per warp step; invalid slots sort last
+        key = np.sort(np.where(valid, ix * 4 + np.arange(GROUP_LANES) // 8, -1), axis=1)
+        n_sec = ((np.diff(key, axis=1) != 0) & (key[:, 1:] >= 0)).sum(1) + (key[:, 0] >= 0)
+        rkey = np.sort(np.where(valid, ix, -1), axis=1)
+        n_row = ((np.diff(rkey, axis=1) != 0) & (rkey[:, 1:] >= 0)).sum(1) + (rkey[:, 0] >= 0)
+        bkey = np.sort(np.where(valid, ix // 8, -1), axis=1)
+        n_blk = ((np.diff(bkey, axis=1) != 0) & (bkey[:, 1:] >= 0)).sum(1) + (bkey[:, 0] >= 0)
+        gathered = int(n_sec.sum()) * 32 * 2 + int(n_blk.sum()) * 32
+        live = valid.any(1)
+        live_out += int(valid.reshape(nq, w, -1).any(1).sum())
+        steps += int(live.sum())
+        rows += int(n_row.sum())
+        sectors += int(n_sec.sum())
+        in_place += gathered
+        staged += win_rows * (GROUP_LANES * (4 + item) + 4) if win_rows else gathered
+    named = np.zeros((op.lanesel.shape[0], LANES // 8), bool)   # 8 lanes a sector
+    for si, lay in enumerate(op.layouts):
+        src, i0 = int(op.table[si, 2]), int(op.table[si, 4])
+        for (_, s0, s1) in lay.levels[0].regions:
+            ix = idx[i0 + s0:i0 + s1]
+            valid = ix < lay.t_a
+            named[src + ix[valid], np.nonzero(valid)[1] // 8] = True
+    needed = int(named.sum()) * 32 * 2 + int(named.any(1).sum()) * 4
+    stream = op.lanesel.numel() * 4 + op.vals.numel() * item + op.blocksel.numel() * 4
+    wins = groups[groups[:, G_WIN_ROWS] > 0, G_WIN_ROWS]
+    return {
+        "bound_bytes": int(idx_b + needed + x_bytes + out_b),
+        "array_bytes": int(idx_b + stream + x_bytes + out_b),
+        "staged_bytes": int(idx_b + staged + x_bytes + out_b),
+        "in_place_bytes": int(idx_b + in_place + x_bytes + out_b),
+        "blocks": len(groups), "staged_blocks": len(wins), "live_outputs": live_out,
+        "window_rows": [int(wins.min()), float(np.median(wins)), int(wins.max())]
+        if len(wins) else None,
+        "rows_per_warp_step": rows / max(steps, 1),
+        "sectors_per_warp_step": sectors / max(steps, 1),
+    }
+
+
+def fused_cuda(op: SellOperand, x2d: torch.Tensor, sr: Semiring, work: torch.Tensor,
+               dp: torch.Tensor) -> None:
+    """Launch the fused depth-0 kernel once over every slab: each slab's
+    level-0 rows from its phase-A stream, into ``work`` (non-final) or
+    ``dp`` (final)."""
+    _check(op, sr, x2d, work, dp)
+    if (x2d.shape != (op.xrows, LANES) or work.shape != (op.work_rows, LANES)
+            or dp.numel() != op.n_pad):
+        raise ValueError(f"x2d must be ({op.xrows}, {LANES}), work ({op.work_rows}, {LANES}) "
+                         f"and dp hold {op.n_pad} rows")
     index, codes, stream = _launch_args(op, sr)
-    fn = _build.function("sell", "sh_sell_phase_a",
-                         [ctypes.c_int] + [ctypes.c_void_p] * 5
-                         + [ctypes.c_longlong] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn = _build.function("sell", "sh_sell_fused",
+                         [ctypes.c_int] + [ctypes.c_void_p] * 8
+                         + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     _build.check_launch("sell", fn(
-        index, x2d.data_ptr(), op.lanesel.data_ptr(), op.vals.data_ptr(),
-        op.blocksel.data_ptr(), work.data_ptr(), op.lanesel.shape[0], *codes, stream))
-    _build.LAUNCHES["sell_phase_a"] += 1
+        index, op.groups.data_ptr(), x2d.data_ptr(), op.lanesel.data_ptr(),
+        op.vals.data_ptr(), op.blocksel.data_ptr(), op.idx.data_ptr(), work.data_ptr(),
+        dp.data_ptr(), op.groups.shape[0], op.stage_rows, *codes, stream))
+    _build.LAUNCHES["sell_fused"] += 1
 
 
 def levels_cuda(op: SellOperand, sr: Semiring, work: torch.Tensor,
                 dp: torch.Tensor) -> None:
-    """Launch the level kernel once per level depth, over every slab that
-    has that level: from the contrib stream in ``work`` to ``dp``."""
+    """Launch the level kernel once per level depth past 0, over every slab
+    that has that level: from the level-0 rows in ``work`` to ``dp``."""
     _check(op, sr, work, dp)
     if work.shape != (op.work_rows, LANES) or dp.numel() != op.n_pad:
         raise ValueError(f"work must be ({op.work_rows}, {LANES}) and dp hold {op.n_pad} "
@@ -491,21 +644,21 @@ def levels_cuda(op: SellOperand, sr: Semiring, work: torch.Tensor,
     fn = _build.function("sell", "sh_sell_level",
                          [ctypes.c_int] + [ctypes.c_void_p] * 4
                          + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    for d, rows in enumerate(op.depth_rows):
+    for d in range(1, len(op.depth_rows)):
         e0, e1 = op.depth_entries[d], op.depth_entries[d + 1]
         _build.check_launch("sell", fn(
             index, op.table.data_ptr(), op.idx.data_ptr(), work.data_ptr(), dp.data_ptr(),
-            e0, e1 - e0, rows, *codes, stream))
+            e0, e1 - e0, op.depth_rows[d], *codes, stream))
         _build.LAUNCHES["sell_level"] += 1
 
 
 def sell_dp_cuda(op: SellOperand, x2d: torch.Tensor, sr: Semiring) -> torch.Tensor:
-    """The carrier-typed dp (n_pad rows): one phase-A launch, then one level
-    launch per depth. Raises on what the kernels do not take and on a
-    refused launch."""
+    """The carrier-typed dp (n_pad rows): one fused depth-0 launch, then one
+    level launch per later depth. Raises on what the kernels do not take
+    and on a refused launch."""
     carrier = _check(op, sr, x2d)
     work = torch.empty((op.work_rows, LANES), dtype=carrier, device=x2d.device)
     dp = torch.empty(op.n_pad, dtype=carrier, device=x2d.device)
-    phase_a_cuda(op, x2d, sr, work)
+    fused_cuda(op, x2d, sr, work, dp)
     levels_cuda(op, sr, work, dp)
     return dp

@@ -1,9 +1,10 @@
 """Kernel tests that need an NVIDIA GPU and nvcc (marker ``cuda``): the
 bsr_band kernel's staged and streamed paths, the strip kernel of bsr_fused
 and bsr_ell, the gen-1 tile kernel of bsr_pallas, the sell2 panel kernel
-the two SpMM kernels (spmm_band, spmm_tiles) and the sell phase-A and
-level kernels, against their plain versions on the same CUDA tensors, and
-spmv, spmm and multi_sssp launching each kernel. They
+the two SpMM kernels (spmm_band, spmm_tiles) and the sell fused depth-0
+and level kernels, against their plain versions on the same CUDA tensors,
+spmv, spmm and multi_sssp launching each kernel, and the sell2 plan made on
+the card against the one made on the CPU. They
 skip without a card; run them on one with
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -11,6 +12,8 @@ skip without a card; run them on one with
 (``--noconftest``: the shared conftest imports JAX, which a machine with
 only the port need not have.)
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -371,13 +374,41 @@ def _sell_matrices():
             (power_law_coo(2000, 30000, seed=5), {"slab_nnz": 8000}), (empty, {})]
 
 
+def _sell_cases():
+    """_sell_matrices and a band whose level-0 windows (about 95 stream rows
+    for 32 lanes) overlap from one output row to the next: three levels in
+    several slabs."""
+    return _sell_matrices() + [(banded_coo(1 << 14, 63, seed=1), {})]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stage_rows", [sell.STAGE_ROWS, 0], ids=["staged", "in_place"])
+@pytest.mark.parametrize("name", sorted(REGISTRY))
+def test_sell_fused_kernel_matches_plain(name, stage_rows, cuda):
+    """The fused depth-0 kernel alone against level_plain(phase_a_plain(…),
+    idx0) per slab (fused_plain): bit for bit for every semiring, with its
+    blocks staged and with every block gathering in place."""
+    sr = get_semiring(name)
+    for coo, kw in _sell_cases():
+        if sr.dtype == torch.bool:
+            coo = coo.with_values(coo.vals != 0)
+        op = sell.regroup(sell.build_sell(coo, sr, device=cuda, **kw), stage_rows=stage_rows)
+        x2d = sell.pad_x2d(op, _x(sr, coo.shape[1], seed=9).to(cuda), sr)
+        work_ref, dp_ref = sell.fused_plain(op, x2d, sr)
+        work, dp = torch.zeros_like(work_ref), torch.zeros_like(dp_ref)
+        sell.fused_cuda(op, x2d, sr, work, dp)
+        torch.cuda.synchronize()
+        assert torch.equal(work.view(torch.int32), work_ref.view(torch.int32))
+        assert torch.equal(dp.view(torch.int32), dp_ref.view(torch.int32))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(REGISTRY))
 def test_sell_kernels_match_plain(name, cuda):
     """Both sell kernels against the plain dp: bit for bit for every
     semiring, plus_times included, and the same bits on a second call."""
     sr = get_semiring(name)
-    for coo, kw in _sell_matrices():
+    for coo, kw in _sell_cases():
         if sr.dtype == torch.bool:
             coo = coo.with_values(coo.vals != 0)
         op = sell.build_sell(coo, sr, device=cuda, **kw)
@@ -395,7 +426,7 @@ def test_sell_kernels_match_plain(name, cuda):
 
 
 @pytest.mark.cuda
-def test_spmv_sell_launches_one_phase_a_and_one_level_per_depth(cuda):
+def test_spmv_sell_launches_one_fused_and_one_level_per_later_depth(cuda):
     coo = power_law_coo(2000, 30000, seed=5)
     op = sell.build_sell(coo, PLUS_TIMES, slab_nnz=8000, device=cuda)
     assert len(op.layouts) >= 2 and op.max_levels >= 2
@@ -403,9 +434,53 @@ def test_spmv_sell_launches_one_phase_a_and_one_level_per_depth(cuda):
     before = dict(LAUNCHES)
     y = spmv(op, x, sr=PLUS_TIMES, variant="sell", n_rows=coo.shape[0])
     torch.cuda.synchronize()
-    assert LAUNCHES["sell_phase_a"] == before["sell_phase_a"] + 1
-    assert LAUNCHES["sell_level"] == before["sell_level"] + op.max_levels
-    assert sum(LAUNCHES.values()) == sum(before.values()) + 1 + op.max_levels
+    assert LAUNCHES["sell_fused"] == before["sell_fused"] + 1
+    assert LAUNCHES["sell_level"] == before["sell_level"] + op.max_levels - 1
+    assert sum(LAUNCHES.values()) == sum(before.values()) + op.max_levels
+    inner = sum(lv.d_out for lay in op.layouts for lv in lay.levels if not lv.final)
+    assert op.work_rows == inner
     cpu_op = sell.build_sell(coo, PLUS_TIMES, slab_nnz=8000, device="cpu")
     ref = spmv(cpu_op, x.cpu(), sr=PLUS_TIMES, variant="sell", n_rows=coo.shape[0])
     assert torch.equal(y.cpu(), ref)
+
+
+@pytest.mark.cuda
+def test_sell2_plan_same_on_card_and_cpu(cuda):
+    """The ragged bench operand, built once on the CPU and carried to the
+    card by interop, gives the same plan (make_plan) on both devices, and a
+    build on the card gives the same arrays as the CPU build. The plan's
+    panel_ptrs hold device addresses, so only their count is compared."""
+    from sparseharness_tpu_torch.ops.interop import sell2_operand_from_numpy
+
+    coo = power_law_coo(500_000, 2_000_000, alpha=1.5, seed=13)
+    cpu_op = sell2.build_sell2(coo, PLUS_TIMES, device="cpu")
+
+    def arrays(op):
+        return [None if s is None else {k: v.cpu().numpy() for k, v in s.items()}
+                for s in op.slabs]
+
+    def owned(t):
+        return None if t is None else t.cpu().numpy()
+
+    card_op = sell2_operand_from_numpy(arrays(cpu_op), cpu_op.layouts, cpu_op.n_chunks,
+                                       cpu_op.n_rows, cpu_op.base_pad,
+                                       owned(cpu_op.piece_owner), owned(cpu_op.virt_blocks),
+                                       device=cuda)
+    cpu_plan, card_plan = cpu_op.plan, card_op.plan
+    assert card_plan.device.type == "cuda" and cpu_plan.device.type == "cpu"
+    assert card_plan.n_runs == cpu_plan.n_runs
+    for field in dataclasses.fields(cpu_plan):
+        a, b = getattr(cpu_plan, field.name), getattr(card_plan, field.name)
+        if field.name == "panel_ptrs":
+            assert a.shape == b.shape
+        elif isinstance(a, torch.Tensor):
+            assert torch.equal(a, b.cpu()), field.name
+        elif field.name in ("n_final", "store"):
+            assert a == b, field.name
+    built = sell2.build_sell2(coo, PLUS_TIMES, device=cuda)
+    for a, b in zip(arrays(cpu_op), arrays(built)):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert a.keys() == b.keys()
+            for k in a:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)

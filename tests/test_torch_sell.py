@@ -71,8 +71,8 @@ DP_CASES = [(m, n) for m in sorted(MATRICES)
                                                                 "or_and"])]
 
 
-def _coos(matrix, sr):
-    make, kw = MATRICES[matrix]
+def _coos(matrix, sr, matrices=MATRICES):
+    make, kw = matrices[matrix]
     coo_t, coo_j = make(tf), make(jf)
     if sr.dtype == torch.bool:
         coo_t = coo_t.with_values(coo_t.vals != 0)
@@ -101,13 +101,22 @@ def _same_bits(port: torch.Tensor, ref) -> None:
     np.testing.assert_array_equal(port.view(np.uint8), ref.view(np.uint8))
 
 
-@pytest.mark.parametrize("matrix", sorted(MATRICES))
+# the build's cases: the dp's matrices and a band with three levels in
+# several slabs, whose rows of 127 entries cut into two runs of 64
+BUILD_MATRICES = {**MATRICES,
+                  "band_levels": (lambda m: m.banded_coo(1 << 13, 63, seed=1),
+                                  {"slab_nnz": 200_000})}
+
+
+@pytest.mark.parametrize("matrix", sorted(BUILD_MATRICES))
 @pytest.mark.parametrize("name", BUILD_NAMES)
 def test_build_matches_jax(name, matrix):
     sr, jsr = get_semiring(name), jax_semiring(name)
-    coo_t, coo_j, kw = _coos(matrix, sr)
+    coo_t, coo_j, kw = _coos(matrix, sr, BUILD_MATRICES)
     op = sell.build_sell(coo_t, sr, device="cpu", **kw)
     jop = js.build_sell(coo_j, jsr, **kw)
+    if matrix == "band_levels":
+        assert len(op.layouts) >= 2 and op.max_levels == 3
     assert op.layouts == jop.layouts
     assert (op.xrows, op.n_rows) == (jop.xrows, jop.n_rows)
     assert len(op.slabs) == len(jop.slabs)
@@ -166,22 +175,55 @@ def test_plain_dp_matches_jax_kernels(matrix, name):
         assert torch.equal(sell.dp_sell(op, torch.from_numpy(x), sr, n_rows=n), port)
 
 
+def _fused_model(op, x2d, sr, work, dp):
+    """What the fused depth-0 launch of csrc/sell.cu computes from its
+    groups table, in torch: per block, its output rows' idx slots of its 32
+    lanes; a staged block gathers from the products of its window of
+    stream rows (which must hold every valid slot), a block in place from
+    the stream's lanesel / vals / blocksel; slots at or past t_a read 0̄;
+    each output is the left-to-right ⊕ of its w slots."""
+    _, add, mul, _, zero, _ = _carrier(sr)
+    xflat = x2d.reshape(-1)
+    flat_idx = op.idx.long()
+    for g in op.groups.long().tolist():
+        i0, w, nq, out0, final, lane0, src, t_a, win, win_rows = g[:10]
+        lanes = torch.arange(lane0, lane0 + sell.GROUP_LANES)
+        ix = flat_idx[i0:i0 + nq * w, lane0:lane0 + sell.GROUP_LANES]
+        valid = ix < t_a
+        if win_rows:
+            rel = ix + src - win
+            assert bool(((rel >= 0) & (rel < win_rows))[valid].all())
+            rows = torch.arange(win, win + win_rows)
+            stage = mul(xflat[op.blocksel[rows].long() * 128 + op.lanesel[rows][:, lanes].long()],
+                        op.vals[rows][:, lanes])
+            z = torch.gather(stage, 0, rel.clamp(0, win_rows - 1))
+        else:
+            rows = (src + ix).clamp(max=op.lanesel.shape[0] - 1)
+            lane = lanes.expand_as(ix)
+            z = mul(xflat[op.blocksel[rows, 0].long() * 128 + op.lanesel[rows, lane].long()],
+                    op.vals[rows, lane])
+        z = torch.where(valid, z, torch.full_like(z, zero)).view(nq, w, -1)
+        acc = z[:, 0]
+        for t in range(1, w):
+            acc = add(acc, z[:, t])
+        (dp if final else work)[out0:out0 + nq, lane0:lane0 + sell.GROUP_LANES] = acc
+
+
 def _kernel_model(op, x2d, sr):
-    """What csrc/sell.cu computes from the launch table, in torch: the
-    phase-A products into the work buffer, then per depth, for each output
+    """What csrc/sell.cu computes from its tables, in torch: the fused
+    depth-0 launch (_fused_model), then per later depth, for each output
     row (block), its entry by binary search on row_begin, its region, the
     left-to-right ⊕ of its w gathered rows, written to the work buffer or
     (final) the dp."""
     carrier, add, mul, _, zero, _ = _carrier(sr)
     work = torch.full((op.work_rows, 128), 7, dtype=carrier)  # stale values must not leak
-    ta_rows = op.lanesel.shape[0]
-    work[:ta_rows] = mul(x2d.reshape(-1)[op.blocksel.long() * 128 + op.lanesel.long()],
-                         op.vals)
     dp = torch.full((op.n_pad // 128, 128), 7, dtype=carrier)
+    _fused_model(op, x2d, sr, work, dp)
     t = op.table.long()
     flat_idx = op.idx.long()
     lane = torch.arange(128)
-    for d, rows in enumerate(op.depth_rows):
+    for d in range(1, len(op.depth_rows)):
+        rows = op.depth_rows[d]
         e0, e1 = op.depth_entries[d], op.depth_entries[d + 1]
         b = torch.arange(rows)
         e = e0 + torch.searchsorted(t[e0:e1, 0].contiguous(), b, right=True) - 1
@@ -205,14 +247,16 @@ def _kernel_model(op, x2d, sr):
     return dp.reshape(-1)
 
 
+@pytest.mark.parametrize("stage_rows", [sell.STAGE_ROWS, 0], ids=["staged", "in_place"])
 @pytest.mark.parametrize("matrix", ["hub", "multislab", "empty_dups", "power_law"])
-def test_kernel_model_equals_plain(matrix):
-    """The launch table drives the kernels' arithmetic to the plain
-    version's bits, for every semiring."""
+def test_kernel_model_equals_plain(matrix, stage_rows):
+    """The launch tables drive the kernels' arithmetic to the plain
+    version's bits, for every semiring, with the fused launch's blocks
+    staged where they may be and with every block gathering in place."""
     for name in NAMES:
         sr = get_semiring(name)
         coo, _, kw = _coos(matrix, sr)
-        op = sell.build_sell(coo, sr, device="cpu", **kw)
+        op = sell.regroup(sell.build_sell(coo, sr, device="cpu", **kw), stage_rows=stage_rows)
         x = torch.from_numpy(_x(sr, coo.shape[1], seed=6))
         want = sell.dp_sell_plain(op, x, sr, n_rows=coo.shape[0])
         got = _kernel_model(op, sell.pad_x2d(op, x, sr), sr)
@@ -221,10 +265,83 @@ def test_kernel_model_equals_plain(matrix):
         assert got.dtype == want.dtype and torch.equal(got, want), name
 
 
+@pytest.mark.parametrize("name", ["plus_times", "min_plus", "or_and", "min_right"])
+def test_fused_model_equals_fused_plain_on_band(name):
+    """On a band, whose level-0 windows overlap from one output row to the
+    next, the fused launch's model writes fused_plain's level-0 rows."""
+    sr = get_semiring(name)
+    coo = tf.banded_coo(1 << 12, 63, seed=1)
+    if sr.dtype == torch.bool:
+        coo = coo.with_values(coo.vals != 0)
+    op = sell.build_sell(coo, sr, slab_nnz=120_000, device="cpu")
+    assert op.stage_rows > 0 and len(op.layouts) >= 2
+    x2d = sell.pad_x2d(op, torch.from_numpy(_x(sr, coo.shape[1], seed=3)), sr)
+    work_ref, dp_ref = sell.fused_plain(op, x2d, sr)
+    work, dp = torch.zeros_like(work_ref), torch.zeros_like(dp_ref).view(-1, 128)
+    _fused_model(op, x2d, sr, work, dp)
+    assert torch.equal(work, work_ref) and torch.equal(dp.reshape(-1), dp_ref)
+
+
+@pytest.mark.parametrize("matrix", sorted(MATRICES))
+def test_fused_groups_cover_level0_once(matrix):
+    """Every level-0 output (row, lane) belongs to one fused block; each
+    block is one region's run width, at most GROUP_SLOTS idx rows, and a
+    staged window within STAGE_ROWS that holds every valid slot."""
+    make, kw = MATRICES[matrix]
+    op = sell.build_sell(make(tf), PLUS_TIMES, device="cpu", **kw)
+    g = op.groups.numpy().astype(np.int64)
+    assert g.shape[1] == sell.GROUP_WORDS and (g[:, 10:] == 0).all()
+    assert op.stage_rows == g[:, sell.G_WIN_ROWS].max(initial=0) <= sell.STAGE_ROWS
+    covered = {}
+    for i0, w, nq, out0, final, lane0, src, t_a, win, win_rows, _, _ in g:
+        assert nq * w <= max(sell.GROUP_SLOTS, w) and lane0 % sell.GROUP_LANES == 0
+        for q in range(nq):
+            key = (int(final), int(out0) + q)
+            covered[key] = covered.get(key, 0) | (((1 << sell.GROUP_LANES) - 1) << int(lane0))
+        if win_rows:
+            ix = op.idx[i0:i0 + nq * w, lane0:lane0 + sell.GROUP_LANES].numpy()
+            v = ix[ix < t_a] + src
+            assert v.min() >= win and v.max() < win + win_rows
+    want = {}
+    for si, lay in enumerate(op.layouts):
+        out0 = int(op.table[si, 5])
+        for r in range(lay.levels[0].d_out):
+            want[(int(lay.levels[0].final), out0 + r)] = (1 << 128) - 1
+    assert covered == want
+    assert sum(nq for nq in g[:, 2]) == 4 * sum(lay.levels[0].d_out for lay in op.layouts)
+
+
+def test_fused_traffic_on_band():
+    """The fused launch's bytes on a band: the bound counts the stream's
+    sectors that hold a slot some valid idx names (array_bytes every row);
+    staging reads each such sector about once (its windows' pad lanes too),
+    so by design it moves at most 6% more than the bound, and a gather in
+    place touches a sector for nearly every slot."""
+    op = sell.build_sell(tf.banded_coo(1 << 12, 63, seed=1), PLUS_TIMES, slab_nnz=120_000,
+                         device="cpu")
+    t = sell.fused_traffic(op)
+    region_rows = sum(r[2] - r[1] for lay in op.layouts for r in lay.levels[0].regions)
+    level0 = sum(lay.levels[0].d_out for lay in op.layouts) * 128 * 4
+    fixed = region_rows * 128 * 4 + op.xrows * 128 * 4 + level0
+    assert t["array_bytes"] == fixed + op.lanesel.shape[0] * (128 * 8 + 4)
+    sectors = rows = 0
+    for s, lay in zip(op.slabs, op.layouts):
+        ix = s["idx0"].numpy()
+        r, lane = np.nonzero(ix < lay.t_a)
+        sectors += len({(int(ix[a, b]), int(b) // 8) for a, b in zip(r, lane)})
+        rows += len(np.unique(ix[ix < lay.t_a]))
+    assert t["bound_bytes"] == fixed + sectors * 64 + rows * 4 < t["array_bytes"]
+    assert t["staged_blocks"] == t["blocks"]
+    assert t["bound_bytes"] <= t["staged_bytes"] <= 1.06 * t["bound_bytes"]
+    assert t["in_place_bytes"] > 3 * t["staged_bytes"]
+    assert 24 < t["rows_per_warp_step"] <= 32
+
+
 def test_launch_table_shape():
     """One entry per (slab, level), depth by depth; each depth's rows are
-    the sum of its entries' output rows; the work buffer holds the contrib
-    stream and every non-final level."""
+    the sum of its entries' output rows; the work buffer holds only the
+    non-final levels' outputs (no contrib stream), and a level-0 entry's
+    source is its slab's phase-A stream."""
     op = sell.build_sell(MATRICES["multislab"][0](tf), PLUS_TIMES, slab_nnz=8000,
                          device="cpu")
     n_levels = [len(lay.levels) for lay in op.layouts]
@@ -233,7 +350,10 @@ def test_launch_table_shape():
     for d, rows in enumerate(op.depth_rows):
         assert rows == sum(lay.levels[d].d_out for lay in op.layouts if d < len(lay.levels))
     inner = sum(lv.d_out for lay in op.layouts for lv in lay.levels if not lv.final)
-    assert op.work_rows == sum(lay.t_a for lay in op.layouts) + inner
+    assert op.work_rows == inner
+    a_off = np.cumsum([0] + [lay.t_a for lay in op.layouts])[:-1]
+    assert op.table[:len(op.layouts), 2].tolist() == a_off.tolist()
+    assert op.table[:len(op.layouts), 3].tolist() == [lay.t_a for lay in op.layouts]
     assert op.idx.shape[0] == sum(lv.t_src for lay in op.layouts for lv in lay.levels)
 
 
