@@ -13,19 +13,26 @@ result. Phases:
 1. device and build: the card, its power limit, torch and CUDA versions,
    and the nvcc build of every kernel source;
 2. kernel vs plain: both paths of the bsr_band kernel (x staged in shared
-   memory, x streamed) against the plain torch version on the same CUDA
-   tensors, for all seven semirings and every strip type, at a small and at
-   the full bench width; bit-exact except plus_times, held within
-   1e-5 · max(1, |plain|, Σ|a·x|) because its sum order differs;
+   memory, x streamed; each reads only the rows' spans of the strips)
+   against the plain torch version on the same CUDA tensors, for all seven
+   semirings and every strip type, at a small and at the full bench width,
+   for x uniform in (0.1, 1), x with ±inf, ±FLT_MAX and ±0, and negative x;
+   bit-exact except plus_times, held within 1e-5 · max(1, |plain|, Σ|a·x|)
+   because its sum order differs (NaN where a pad meets ±inf), and except
+   the sign of a ±0 tie, which torch's amax leaves to its order: against
+   the same dp with IEEE min and max the sign must match too;
 3. the main path, with the launch counters reset just before and read just
    after: the 524,288-row band SpMV (bench.py's headline, 66,580,544 nnz)
    through make_spmv_problem and benchmark_spmv, gold-gated in f32 and bf16
    on both kernel paths; then the sssp, bfs and pagerank fixpoints at that
    width, each with a certificate that is cheap at full width;
 4. the same apps on a small band against the port's NumPy golds;
-5. kernel timing at the main path's f32 shape (CUDA events): each kernel
-   path, the plain version, torch.mv on a CSR tensor of the same matrix as
-   the library yardstick, and the bytes/operations bound;
+5. kernel timing at the main path's f32 and bf16 shapes (CUDA events, the
+   paths in turns): each kernel path, the plain version, torch.mv on a CSR
+   tensor of the same matrix as the library yardstick, the bound (the
+   least traffic: each row's span of values, x and the output), the bytes
+   by design (band_traffic) and the layout's bytes and bound (every strip
+   slot); then scripts/probe_band_spans_cuda.py once, as a subprocess;
 6. blocked kernels vs plain: the strip kernel of bsr_fused (x gathered in
    the kernel) and of bsr_ell (x strips gathered before it), and the gen-1
    tile kernel of bsr_pallas, against their plain versions on the same
@@ -129,6 +136,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -251,39 +259,92 @@ def check_kernel(torch, label, got, ref, bound) -> float:
     return max_err(torch, got, ref)
 
 
+def check_band(torch, label, got, ref, strict) -> None:
+    """NaN where NaN, else the same bits; against the plain version
+    (``strict`` False) two zeros of either sign also match: torch's amax and
+    amin leave the sign of a ±0 tie to their reduction order."""
+    torch.cuda.synchronize()
+    if got.dtype != torch.float32:
+        if not torch.equal(got, ref):
+            raise AssertionError(f"{label}: kernel != reference in "
+                                 f"{int((got != ref).sum())} rows")
+        return
+    nan = got.isnan()
+    same = got.view(torch.int32) == ref.view(torch.int32)
+    if not strict:
+        same |= (got == 0) & (ref == 0)
+    bad = int((nan != ref.isnan()).sum()) + int((~same & ~nan).sum())
+    if bad:
+        raise AssertionError(f"{label}: kernel != reference in {bad} rows")
+
+
+def check_band_plus_times(torch, label, got, ref, bound) -> tuple:
+    """plus_times: NaN where Σ|a·x| is NaN (a pad meets ±inf: 0·inf), and
+    within PT_DELTA · max(1, |plain|, Σ|a·x|) where Σ|a·x| is finite. Where
+    it is +inf the sum's value depends on its order, and such rows are not
+    checked here (the exact semirings hold them bit for bit). Fails when no
+    row is finite; returns the largest |got − ref| on the finite rows and
+    their count."""
+    torch.cuda.synchronize()
+    nan = bound.isnan()
+    if not (bool(got[nan].isnan().all()) and bool(ref[nan].isnan().all())):
+        raise AssertionError(f"{label}: a 0·inf pad row is not NaN")
+    fin = bound.isfinite()
+    n_fin = int(fin.sum())
+    if n_fin == 0:
+        raise AssertionError(f"{label}: no row has a finite Σ|a·x| to check")
+    return check_kernel(torch, label, got[fin], ref[fin], bound[fin]), n_fin
+
+
 def kernel_vs_plain(torch, coo, errs) -> dict:
-    """Both kernel paths against the plain version on one matrix; the worst
-    plus_times error per path goes into ``errs``."""
+    """Both kernel paths against the plain version on one matrix, for x
+    uniform in (0.1, 1), x with ±inf, ±FLT_MAX and ±0, and negative x; the
+    exact semirings also bit for bit, zero signs included, against the dp
+    with IEEE min and max. The worst plus_times error per path goes into
+    ``errs``; the rows held to plus_times' tolerance, for each x kind, into
+    the result."""
     from sparseharness_tpu_torch.ops import bsr_band
     from sparseharness_tpu_torch.semiring import PLUS_TIMES, get_semiring
 
     rng = np.random.default_rng(7)
     n = coo.shape[0]
     checked = 0
+    finite_rows = {}
     for name in SEMIRINGS:
         sr = get_semiring(name)
         for vd in (("float32", "bfloat16") if sr.dtype == torch.float32 else ("float32",)):
             op = bsr_band.build_bsr_band(coo, sr, value_dtype=vd, device="cuda")
-            x = random_x(torch, sr, n, rng)
-            x2d = bsr_band.pad_x(op, x, sr)
-            bound = None
-            if name == "plus_times":
-                bound = bsr_band.band_dp_plain(
-                    op.strips.abs(), x2d.abs(), PLUS_TIMES, c0=op.c0,
-                    k_win=op.k_win, kc=op.k_win)
-            # staged, streamed, and streamed with one slot per ⊕-partial
-            for path, stage_x, kc in (("staged", True, op.k_win),
-                                      ("streamed", False, bsr_band.chunk_slots(op, False)),
-                                      ("streamed", False, 1)):
-                got = bsr_band.band_dp_cuda(op.strips, x2d, sr, c0=op.c0,
-                                            k_win=op.k_win, stage_x=stage_x, kc=kc)
-                ref = bsr_band.band_dp_plain(op.strips, x2d, sr, c0=op.c0,
-                                             k_win=op.k_win, kc=kc)
-                errs[path] = max(errs[path], check_kernel(
-                    torch, f"{path} {name}/{vd}/kc={kc}", got, ref, bound))
-                checked += 1
-            del op, x2d
-    return {"rows": n, "nnz": coo.nnz, "comparisons": checked}
+            for kind in bsr_band.X_KINDS:
+                x = torch.from_numpy(bsr_band.band_x(sr, n, kind, rng)).cuda()
+                x2d = bsr_band.pad_x(op, x, sr)
+                ieee = bsr_band.band_dp_ieee(op.strips, x2d, sr, c0=op.c0, k_win=op.k_win)
+                bound = None
+                if name == "plus_times":
+                    bound = bsr_band.band_dp_plain(
+                        op.strips.abs(), x2d.abs(), PLUS_TIMES, c0=op.c0,
+                        k_win=op.k_win, kc=op.k_win)
+                # staged, streamed, and streamed with one slot per ⊕-partial
+                for path, stage_x, kc in (("staged", True, op.k_win),
+                                          ("streamed", False, bsr_band.chunk_slots(op, False)),
+                                          ("streamed", False, 1)):
+                    got = bsr_band.band_dp_cuda(op.strips, x2d, sr, c0=op.c0,
+                                                k_win=op.k_win, stage_x=stage_x, kc=kc,
+                                                spans=op.spans)
+                    ref = bsr_band.band_dp_plain(op.strips, x2d, sr, c0=op.c0,
+                                                 k_win=op.k_win, kc=kc)
+                    label = f"{path} {name}/{vd}/{kind}/kc={kc}"
+                    if bound is None:
+                        check_band(torch, label, got, ref, strict=False)
+                        check_band(torch, label + " (IEEE)", got, ieee, strict=True)
+                    else:
+                        err, n_fin = check_band_plus_times(torch, label, got, ref, bound)
+                        errs[path] = max(errs[path], err)
+                        finite_rows[f"{vd}/{kind}"] = n_fin
+                    checked += 1
+                del x, x2d, ieee, bound
+            del op
+    return {"rows": n, "nnz": coo.nnz, "comparisons": checked,
+            "plus_times_finite_rows": finite_rows}
 
 
 def spmv_main_path(torch, coo, out) -> None:
@@ -412,8 +473,12 @@ def small_apps(torch) -> dict:
 
 def kernel_times(torch, coo) -> dict:
     """Per-kernel ms at the main path's shape, the plain version's ms, the
-    library yardstick's ms and the bound, for f32 (and the kernels' bf16)."""
-    from sparseharness_tpu_torch.harness import device_hbm_bandwidth
+    library yardstick's ms and the bound, for f32 (and the kernels' bf16).
+    The bound is the least traffic these inputs need (variant_bytes: each
+    row's span of values, x and the output); beside it the bytes by design
+    (band_traffic: the span chunks, the span table, x and the output) and
+    the layout's bytes and bound (every strip slot)."""
+    from sparseharness_tpu_torch.harness import device_hbm_bandwidth, variant_bytes
     from sparseharness_tpu_torch.ops import bsr_band
     from sparseharness_tpu_torch.semiring import PLUS_TIMES
 
@@ -421,31 +486,53 @@ def kernel_times(torch, coo) -> dict:
     bw = device_hbm_bandwidth(card)
     n = coo.shape[0]
     x = random_x(torch, PLUS_TIMES, n, np.random.default_rng(11))
+    csr = csr_of(torch, coo)
     res = {}
     for vd in ("float32", "bfloat16"):
         op = bsr_band.build_bsr_band(coo, PLUS_TIMES, value_dtype=vd, device="cuda")
         x2d = bsr_band.pad_x(op, x, PLUS_TIMES)
-        n_bytes = (op.strips.numel() * op.strips.element_size()
-                   + x2d.numel() * 4 + op.strips.shape[0] * op.strips.shape[1] * 4)
-        n_ops = 2 * op.strips.numel()  # one ⊗ and one ⊕ per strip slot
-        bytes_ms, ops_ms = n_bytes / bw * 1e3, n_ops / F32_PEAK_OPS * 1e3
-        entry = {"bound_ms": max(bytes_ms, ops_ms),
-                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                 "bytes": n_bytes}
-        for path, stage_x in (("staged", True), ("streamed", False)):
+        n_bytes = variant_bytes("bsr_band", op, n * 4, n * 4)
+        n_ops = 2 * coo.nnz  # one ⊗ and one ⊕ per stored value
+        entry = bound(n_bytes, n_ops, bw)
+        traffic = bsr_band.band_traffic(op)
+        layout = (op.strips.numel() * op.strips.element_size() + x2d.numel() * 4
+                  + op.strips.shape[0] * op.strips.shape[1] * 4)
+        entry.update(design_bytes=traffic["bytes"], design_bound_ms=traffic["bytes"] / bw * 1e3,
+                     layout_bytes=layout, layout_bound_ms=layout / bw * 1e3)
+        ms = {"staged": [], "streamed": []}
+        # the paths in turns: staged, streamed, streamed, staged
+        for path in ("staged", "streamed", "streamed", "staged"):
+            stage_x = path == "staged"
             kc = bsr_band.chunk_slots(op, stage_x)
-            entry[f"{path}_ms"] = time_ms(torch, lambda: bsr_band.band_dp_cuda(
+            ms[path].append(time_ms(torch, lambda: bsr_band.band_dp_cuda(
                 op.strips, x2d, PLUS_TIMES, c0=op.c0, k_win=op.k_win,
-                stage_x=stage_x, kc=kc), 50)
+                stage_x=stage_x, kc=kc, spans=op.spans), 50))
+        for path, t in ms.items():
+            entry[f"{path}_ms"] = min(t)
+            entry[f"{path}_ms_runs"] = t
+            entry[f"{path}_share_of_bound"] = entry["bound_ms"] / min(t)
         entry["plain_ms"] = time_ms(torch, lambda: bsr_band.band_dp_plain(
             op.strips, x2d, PLUS_TIMES, c0=op.c0, k_win=op.k_win, kc=op.k_win), 5)
+        # library yardstick: cuSPARSE SpMV through torch.mv on a CSR tensor
+        # of the same matrix (plus_times, f32), in the same run
+        entry["library_ms"] = time_ms(torch, lambda: torch.mv(csr, x), 20)
         res[vd] = entry
         del op, x2d
-    # library yardstick: cuSPARSE SpMV through torch.mv on a CSR tensor of
-    # the same matrix (plus_times, f32)
-    csr = csr_of(torch, coo)
-    res["float32"]["library_ms"] = time_ms(torch, lambda: torch.mv(csr, x), 20)
     return res
+
+
+def band_span_probe() -> dict:
+    """scripts/probe_band_spans_cuda.py once, as a subprocess: its seconds
+    and its JSON lines (the designs' ms in turns, the streamed path and
+    torch.mv)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join("scripts", "probe_band_spans_cuda.py")],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the band span probe exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    return {"probe_seconds": time.perf_counter() - t0, "lines": lines}
 
 
 def one_wide_row(n_rows: int = 600):
@@ -1831,6 +1918,8 @@ def main() -> int:
     with Phase("kernel_times") as f:
         times = kernel_times(torch, coo)
         f.update(card=card, nvidia_smi=smi, times=times)
+    with Phase("band_span_probe") as f:
+        f.update(card=card, nvidia_smi=smi, **band_span_probe())
 
     berrs = dict.fromkeys(BLOCKED, 0.0)
     with Phase("blocked_kernel_vs_plain_small") as f:

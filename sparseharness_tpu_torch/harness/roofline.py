@@ -65,7 +65,19 @@ def variant_bytes(variant: str, operand, x_bytes: int, out_bytes: int) -> int:
     ``sell``: every array of its slabs (lanesel, vals, blocksel and each
     level's idx) once, x once and the output once. The level outputs are
     intermediates (the fused depth-0 kernel writes no contrib stream), and
-    the launch tables are the kernels' own bookkeeping."""
+    the launch tables are the kernels' own bookkeeping.
+
+    ``bsr_band``: the values of each row's occupied span of the strips
+    (``spans.lanes``, from its first to its last stored value), x once and
+    the output once. The JAX package charges every strip slot, pads
+    included; the CUDA kernel reads only the spans and takes the pads'
+    products from a scan of x, so the spans are the least traffic for the
+    same work. The span table is the kernel's bookkeeping, and the chunks it
+    reads by design are ``ops.bsr_band.band_traffic``'s."""
+    if variant == "bsr_band":
+        if operand.spans is None:
+            raise ValueError("a bsr_band operand without a span table: make it with with_spans")
+        return operand.spans.lanes * operand.strips.element_size() + x_bytes + out_bytes
     if variant == "sell2":
         operand = [operand.slabs, operand.piece_owner, operand.virt_blocks]
     elif variant == "sell":

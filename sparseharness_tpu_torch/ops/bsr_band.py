@@ -21,6 +21,11 @@ On a CUDA tensor :func:`dp_bsr_band` launches the hand-written kernel of
   global memory (L1/L2) in chunks of kc window slots whose partials are
   ⊕-combined in registers.
 
+Both read only each row's occupied span of the strips (:class:`BandSpans`,
+made once per operand from the strips): the pad slots outside it hold 0̄,
+and their products ⊗(x, 0̄) come from two scans of the group's x window
+instead, so the dp is the plain version's whatever x holds.
+
 On a CPU tensor it runs :func:`dp_bsr_band_plain`, the plain torch
 version of the same padded dp, which the tests and ``chip_smoke.py`` hold
 the kernel against.
@@ -35,7 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -62,18 +67,48 @@ _SMEM_WINDOW_BYTES = 48 * 1024
 LAUNCHES = _build.LAUNCHES
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class BandSpans:
+    """Each padded row's occupied span of the strips, in 16-byte chunks.
+
+    A chunk is ``16 // itemsize`` lanes (4 in f32 and int32, 8 in bf16).
+    Row R's span is chunks [lo, hi) = ``table[R]``: the chunks from the one
+    that holds its first lane whose stored bits differ from ``pad`` to the
+    one that holds its last; a row with no such lane has lo = hi = 0. ``pad``
+    is 0̄ as the strips store it (bf16(FLT_MAX) rounds to +inf), and
+    ``pad_bits`` its 32 bits in the kernel's compute type. ``lanes`` is the
+    sum over rows of last − first + 1: the values a dp must read.
+    ``strips`` is the tensor the table was made from, and the kernel takes
+    the table with no other."""
+
+    strips: torch.Tensor
+    table: torch.Tensor  # int16 (r_rows·bm, 2): lo, hi
+    pad: Union[int, float]
+    pad_bits: int
+    lanes: int
+    max_chunks: int
+
+    @property
+    def chunk_lanes(self) -> int:
+        return 16 // self.strips.element_size()
+
+
 @dataclasses.dataclass(frozen=True)
 class BsrBandOperand:
     """strips (R_blocks, bm, K·bn): slot k ↔ x block base(g) + k.
 
     ``windowed`` picks the kernel path for every dp over this operand:
-    None by the rule of :func:`dp_bsr_band`, True streamed, False staged."""
+    None by the rule of :func:`dp_bsr_band`, True streamed, False staged.
+    ``spans``, the rows' occupied spans that the kernel reads, is made by
+    :func:`build_bsr_band` (or :func:`with_spans`); the plain version does
+    not need it."""
 
     strips: torch.Tensor
     c0: int
     k_win: int
     n_cols: int
     windowed: Optional[bool] = None
+    spans: Optional[BandSpans] = None
 
 
 def build_bsr_band(coo: COO, sr: Semiring, bm: int = 8, bn: int = 128,
@@ -145,7 +180,72 @@ def build_bsr_band(coo: COO, sr: Semiring, bm: int = 8, bn: int = 128,
     if (value_dtype == "bfloat16" and not as_int
             and np.issubdtype(sr.np_dtype, np.floating)):
         strips = strips.to(torch.bfloat16)  # round to nearest even
-    return BsrBandOperand(strips=strips, c0=c0, k_win=k_win, n_cols=c)
+    return BsrBandOperand(strips=strips, c0=c0, k_win=k_win, n_cols=c,
+                          spans=band_spans(strips, sr))
+
+
+#: the bits of each strip type, to compare stored values with the pad
+_BITS = {4: torch.int32, 2: torch.int16}
+#: elements of the strips whose span mask is made at once
+_SPAN_SLICE = 1 << 26
+
+
+def band_spans(strips: torch.Tensor, sr: Semiring) -> BandSpans:
+    """The span table of ``strips`` under ``sr``'s pad, made where the
+    strips lie, a slice of rows at a time."""
+    r_rows, bm, kbn = strips.shape
+    item = strips.element_size()
+    cw = 16 // item
+    if kbn % cw or kbn // cw >= 1 << 15:
+        raise ValueError(f"a strip row of {kbn} lanes must be whole 16-byte chunks, "
+                         f"fewer than 2^15 of them")
+    zero = _carrier(sr)[4]
+    pad_t = torch.tensor(zero, dtype=strips.dtype)
+    stored = int(pad_t.view(_BITS[item]).item())  # the pad's bits as stored
+    pad = pad_t.item()
+    compute = np.float32 if strips.dtype.is_floating_point else np.int32
+    rows = r_rows * bm
+    flat = strips.reshape(rows, kbn).view(_BITS[item])
+    table = torch.zeros((rows, 2), dtype=torch.int16, device=strips.device)
+    lanes = torch.zeros((), dtype=torch.int64, device=strips.device)
+    longest = torch.zeros((), dtype=torch.int64, device=strips.device)
+    step = max(1, _SPAN_SLICE // max(kbn, 1))
+    for r0 in range(0, rows, step):
+        held = flat[r0:r0 + step] != stored
+        occupied = held.any(dim=1)
+        first = held.to(torch.uint8).argmax(dim=1)  # argmax takes the first
+        last = kbn - 1 - held.flip(1).to(torch.uint8).argmax(dim=1)
+        span = torch.stack((first // cw, last // cw + 1), dim=1)
+        table[r0:r0 + step] = torch.where(occupied[:, None], span, 0).to(torch.int16)
+        lanes += torch.where(occupied, last - first + 1, 0).sum()
+        longest = torch.maximum(longest, torch.where(occupied, span[:, 1] - span[:, 0], 0).max())
+    return BandSpans(strips=strips, table=table, pad=pad,
+                     pad_bits=int(np.array(pad, compute).view(np.int32)),
+                     lanes=int(lanes), max_chunks=int(longest))
+
+
+def with_spans(op: BsrBandOperand, sr: Semiring) -> BsrBandOperand:
+    """``op`` with the span table of its strips under ``sr``'s pad."""
+    return dataclasses.replace(op, spans=band_spans(op.strips, sr))
+
+
+def band_traffic(op: BsrBandOperand) -> dict:
+    """The bytes one dp of the kernel moves by design, counted from the
+    operand: the 16-byte chunks of every row's span (``chunk_bytes``), the
+    4-byte span table (``table_bytes``), the padded x once (``x_bytes``)
+    and the padded output once (``out_bytes``); ``bytes`` is their sum. The
+    least traffic these inputs need counts each span's values instead of
+    its chunks and no table (harness/roofline.py:variant_bytes)."""
+    table = op.spans.table
+    kbn = op.strips.shape[2]
+    bn = kbn // op.k_win
+    parts = {
+        "chunk_bytes": int((table[:, 1].int() - table[:, 0].int()).sum()) * 16,
+        "table_bytes": table.numel() * table.element_size(),
+        "x_bytes": max(round_up(max(op.n_cols, 1), bn), kbn) * 4,
+        "out_bytes": table.shape[0] * 4,
+    }
+    return {**parts, "bytes": sum(parts.values())}
 
 
 def pad_x(op: BsrBandOperand, x: torch.Tensor, sr: Semiring) -> torch.Tensor:
@@ -202,7 +302,7 @@ def dp_bsr_band(op: BsrBandOperand, x: torch.Tensor, sr: Semiring, *,
     x2d = pad_x(op, x, sr)
     staged = _staged(op, x2d, windowed)
     dp = band_dp_cuda(op.strips, x2d, sr, c0=op.c0, k_win=op.k_win,
-                      stage_x=staged, kc=chunk_slots(op, staged))
+                      stage_x=staged, kc=chunk_slots(op, staged), spans=op.spans)
     return dp > 0 if sr.dtype == torch.bool else dp
 
 
@@ -239,11 +339,96 @@ def band_dp_plain(strips: torch.Tensor, x2d: torch.Tensor, sr: Semiring, *,
     return reduce_(part, dim=-1).reshape(-1)
 
 
-def band_dp_cuda(strips: torch.Tensor, x2d: torch.Tensor, sr: Semiring, *,
-                 c0: int, k_win: int, stage_x: bool, kc: int) -> torch.Tensor:
-    """Launch the CUDA kernel: the carrier-typed padded dp (r_rows·bm,).
+def ieee_reduce(sr: Semiring, t: torch.Tensor, dim: int) -> torch.Tensor:
+    """⊕ over ``dim`` as the kernel takes it: for the float min and max the
+    IEEE 754-2019 minimum and maximum (NaN propagates, −0 < +0), by the
+    order of the floats' bits, so the result does not depend on the order;
+    the carrier's reduction otherwise. torch's amax and amin, which the
+    plain version uses, leave the sign of a ±0 tie to their order."""
+    carrier, _, _, reduce_, _, _ = _carrier(sr)
+    if carrier != torch.float32 or sr.name == "plus_times":
+        return reduce_(t, dim=dim)
+    bits = t.contiguous().view(torch.int32)
+    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)  # monotone in the float's value
+    key = key.amin(dim=dim) if sr.name == "min_plus" else key.amax(dim=dim)
+    out = (key ^ ((key >> 31) & 0x7FFFFFFF)).view(torch.float32)
+    return torch.where(t.isnan().any(dim=dim), out.new_tensor(float("nan")), out)
 
-    Raises on what the kernel does not take and on a refused launch."""
+
+def ieee_mul(sr: Semiring, x: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """⊗ as the kernel takes it: max_min's min is the IEEE minimum."""
+    if sr.name != "max_min":
+        return _carrier(sr)[2](x, a)
+    return -ieee_reduce(sr, torch.stack(torch.broadcast_tensors(-x, -a)), 0)
+
+
+def band_dp_ieee(strips: torch.Tensor, x2d: torch.Tensor, sr: Semiring, *,
+                 c0: int, k_win: int) -> torch.Tensor:
+    """:func:`band_dp_plain`'s dp (whole windows, kc = K) with ⊗ and ⊕ as
+    :func:`ieee_mul` and :func:`ieee_reduce`: for the six exact semirings
+    the kernel's result bit for bit, zero signs included."""
+    r_rows, bm, kbn = strips.shape
+    bn = kbn // k_win
+    n_groups = r_rows * bm // bn
+    base = (torch.arange(n_groups, device=x2d.device) + c0).clamp(
+        0, max(x2d.shape[0] - k_win, 0))
+    win = x2d[base[:, None] + torch.arange(k_win, device=x2d.device)].reshape(n_groups, 1, kbn)
+    st = strips.reshape(n_groups, bn, kbn)
+    st = st.float() if st.dtype == torch.bfloat16 else st
+    return ieee_reduce(sr, ieee_mul(sr, win, st), -1).reshape(-1)
+
+
+#: the kinds of x that :func:`band_x` makes
+X_KINDS = ("uniform", "specials", "negative")
+
+
+def band_x(sr: Semiring, n: int, kind: str, rng: np.random.Generator) -> np.ndarray:
+    """n values of x, drawn from ``rng``, to hold the kernel against the
+    plain version where the pads matter.
+
+    ``uniform``: in (0.1, 1); integers in [0, 50); bool true at 30%.
+    ``specials``: in (−1, 1) (integers in [−50, 50)), and a third of the
+    first eighth of the columns ±inf, ±FLT_MAX or ±0 (INT_MIN, INT_MAX, 0
+    or −1 for the int semirings): the rows whose window reaches there meet
+    them in their pad lanes; the rows whose window lies beyond keep a
+    finite Σ|a·x|, on which plus_times' tolerance is checked.
+    ``negative``: every value below zero, where max_times' pads (0·x = −0)
+    set the dp; bool all false. Bool x has no specials."""
+    if kind not in X_KINDS:
+        raise ValueError(f"kind must be one of {X_KINDS}, got {kind!r}")
+    if sr.dtype == torch.bool:
+        return rng.random(n) < 0.3 if kind != "negative" else np.zeros(n, bool)
+    is_int = sr.dtype == torch.int32
+    if kind == "uniform":
+        return (rng.integers(0, 50, n).astype(np.int32) if is_int
+                else rng.uniform(0.1, 1.0, n).astype(np.float32))
+    if is_int:
+        info = np.iinfo(np.int32)
+        specials = np.array([info.min, info.max, 0, -1], np.int32)
+        x = rng.integers(-50, 50, n).astype(np.int32)
+    else:
+        fmax = np.finfo(np.float32).max
+        specials = np.array([np.inf, -np.inf, fmax, -fmax, 0.0, -0.0], np.float32)
+        x = rng.uniform(-1.0, 1.0, n).astype(np.float32)
+    if kind == "negative":
+        return -np.abs(x) - x.dtype.type(1 if is_int else 0.1)
+    at = (rng.random(n) < 1 / 3) & (np.arange(n) < n // 8)
+    x[at] = specials[rng.integers(0, specials.size, int(at.sum()))]
+    return x
+
+
+def band_dp_cuda(strips: torch.Tensor, x2d: torch.Tensor, sr: Semiring, *,
+                 c0: int, k_win: int, stage_x: bool, kc: int,
+                 spans: Optional[BandSpans]) -> torch.Tensor:
+    """Launch the CUDA kernel: the carrier-typed padded dp (r_rows·bm,),
+    reading each row's span of the strips from ``spans``.
+
+    Raises on what the kernel does not take, on a span table made for
+    other strips and on a refused launch."""
+    if spans is None:
+        raise ValueError("the operand has no span table: make it with with_spans")
+    if spans.strips is not strips:
+        raise ValueError("the span table was made for other strips: remake it with with_spans")
     if strips.device.type != "cuda" or x2d.device != strips.device:
         raise ValueError("band_dp_cuda needs strips and x on one CUDA device")
     carrier, *_ = _carrier(sr)
@@ -264,16 +449,19 @@ def band_dp_cuda(strips: torch.Tensor, x2d: torch.Tensor, sr: Semiring, *,
     if stage_x and kbn * x2d.element_size() > _SMEM_WINDOW_BYTES:
         raise ValueError(f"x window of {kbn} elements exceeds the staged "
                          f"path's {_SMEM_WINDOW_BYTES} bytes")
-    _check_layout(strips, x2d)
+    _check_layout(strips, x2d, spans.table)
     out = torch.empty(r_rows * bm, dtype=carrier, device=strips.device)
-    stream = torch.cuda.current_stream(strips.device).cuda_stream
+    # the raw current stream: torch.cuda.current_stream builds a Stream
+    # object on every call
+    stream = torch._C._cuda_getCurrentRawStream(strips.device.index)
     fn = _build.function("bsr_band", "sh_band_dp",
-                         [ctypes.c_int] + [ctypes.c_void_p] * 3
-                         + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+                         [ctypes.c_int] + [ctypes.c_void_p] * 4
+                         + [ctypes.c_int] * 12 + [ctypes.c_void_p])
     _build.check_launch("bsr_band", fn(
-        strips.device.index, strips.data_ptr(), x2d.data_ptr(), out.data_ptr(),
-        r_rows, bm, kbn, k, kc, c0, x2d.shape[0], _build.SR_CODES[sr.name],
-        _build.STRIP_CODES[strips.dtype], int(stage_x), stream,
+        strips.device.index, strips.data_ptr(), x2d.data_ptr(), spans.table.data_ptr(),
+        out.data_ptr(), r_rows, bm, kbn, k, kc, c0, x2d.shape[0],
+        _build.SR_CODES[sr.name], _build.STRIP_CODES[strips.dtype], int(stage_x),
+        spans.pad_bits, spans.max_chunks, stream,
     ))
     LAUNCHES["staged" if stage_x else "streamed"] += 1
     return out

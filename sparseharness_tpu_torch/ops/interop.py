@@ -8,18 +8,21 @@ so both packages can be fed identical strips or column ids. bfloat16 arrays
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
 from sparseharness_tpu_torch.formats.sparse import round_up
 from sparseharness_tpu_torch.ops.bsr import BsrOperand, segments
-from sparseharness_tpu_torch.ops.bsr_band import BsrBandOperand
+from sparseharness_tpu_torch.ops.bsr_band import BsrBandOperand, with_spans
 from sparseharness_tpu_torch.ops.bsr_ell import BsrEllOperand
 from sparseharness_tpu_torch.ops.bsr_fused import BsrFusedOperand
 from sparseharness_tpu_torch.ops.dia import DiaOperand
 from sparseharness_tpu_torch.ops import sell
 from sparseharness_tpu_torch.ops.sell2 import Sell2Operand, _SlabLayout, assemble
 from sparseharness_tpu_torch.ops.torch_ops import CooOperand, DenseOperand, EllOperand
+from sparseharness_tpu_torch.semiring import Semiring
 from sparseharness_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -31,9 +34,15 @@ def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def bsr_band_operand_from_numpy(strips: np.ndarray, c0: int, k_win: int,
-                                n_cols: int, device: DeviceLike = None) -> BsrBandOperand:
-    return BsrBandOperand(strips=_tensor(strips, resolve_device(device)),
-                          c0=int(c0), k_win=int(k_win), n_cols=int(n_cols))
+                                n_cols: int, device: DeviceLike = None, *,
+                                sr: Optional[Semiring] = None) -> BsrBandOperand:
+    """The band operand from its strips. With ``sr`` it also holds the span
+    table that the kernel reads, made on the device from the strips under
+    ``sr``'s pad, as build_bsr_band makes it; without, only the plain
+    version can take it."""
+    op = BsrBandOperand(strips=_tensor(strips, resolve_device(device)),
+                        c0=int(c0), k_win=int(k_win), n_cols=int(n_cols))
+    return op if sr is None else with_spans(op, sr)
 
 
 def ell_operand_from_numpy(cols: np.ndarray, vals: np.ndarray,

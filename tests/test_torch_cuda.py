@@ -50,27 +50,78 @@ def _x(sr, n, seed):
     return torch.from_numpy(x)
 
 
+def _assert_band_matches(name, got, ref, bound, strict):
+    """NaN where NaN, else the same bits. Against the plain version two
+    zeros of either sign also match (``strict`` False): torch's amax and
+    amin leave the sign of a ±0 tie to their reduction order. plus_times:
+    NaN where Σ|a·x| is NaN (a pad meets ±inf: 0·inf), and within
+    1e-5 · max(1, |plain|, Σ|a·x|) where Σ|a·x| is finite; where it
+    overflows, the sum's value depends on its order. Returns the rows held
+    to the tolerance (0 for the other semirings)."""
+    if name == "plus_times":
+        nan = bound.isnan()
+        assert bool(got[nan].isnan().all()) and bool(ref[nan].isnan().all())
+        fin = bound.isfinite()
+        tol = 1e-5 * torch.clamp(torch.maximum(ref.abs(), bound), min=1.0)
+        assert bool(((got - ref).abs() <= tol)[fin].all())
+        return int(fin.sum())
+    if got.dtype != torch.float32:
+        assert torch.equal(got, ref)
+        return 0
+    nan = got.isnan()
+    assert torch.equal(nan, ref.isnan())
+    same = got.view(torch.int32) == ref.view(torch.int32)
+    if not strict:
+        same |= (got == 0) & (ref == 0)
+    assert bool(same[~nan].all()), f"{int((~same & ~nan).sum())} rows differ"
+    return 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,value_dtype", CASES)
 def test_kernel_paths_match_plain(name, value_dtype, cuda):
+    """Both paths, with kc = K and kc = 1, on the tests' wide windows and a
+    65,536-row cut of the bench band, for x that makes the pads matter:
+    against band_dp_plain, and bit for bit, zero signs included, against
+    the same dp with IEEE min and max."""
     sr = get_semiring(name)
-    for coo in (banded_coo(1200, 130, seed=12), random_coo(96, 700, 400, seed=13)):
+    finite_rows = dict.fromkeys(bsr_band.X_KINDS, 0)
+    for coo in (banded_coo(1200, 130, seed=12), random_coo(96, 700, 400, seed=13),
+                banded_coo(1 << 14, 63, seed=1)):
         op = bsr_band.build_bsr_band(coo, sr, value_dtype=value_dtype, device=cuda)
-        x = _x(sr, coo.shape[1], seed=3).to(cuda)
-        x2d = bsr_band.pad_x(op, x, sr)
-        for stage_x, kc in ((True, op.k_win), (False, op.k_win), (False, 1)):
-            got = bsr_band.band_dp_cuda(op.strips, x2d, sr, c0=op.c0, k_win=op.k_win,
-                                        stage_x=stage_x, kc=kc)
-            torch.cuda.synchronize()
-            ref = bsr_band.band_dp_plain(op.strips, x2d, sr, c0=op.c0,
-                                         k_win=op.k_win, kc=kc)
-            if name == "plus_times":
+        for kind in bsr_band.X_KINDS:
+            x = bsr_band.band_x(sr, coo.shape[1], kind, np.random.default_rng(3))
+            x2d = bsr_band.pad_x(op, torch.from_numpy(x).to(cuda), sr)
+            ieee = bsr_band.band_dp_ieee(op.strips, x2d, sr, c0=op.c0, k_win=op.k_win)
+            for stage_x, kc in ((True, op.k_win), (False, op.k_win), (False, 1)):
+                got = bsr_band.band_dp_cuda(op.strips, x2d, sr, c0=op.c0, k_win=op.k_win,
+                                            stage_x=stage_x, kc=kc, spans=op.spans)
+                torch.cuda.synchronize()
+                ref = bsr_band.band_dp_plain(op.strips, x2d, sr, c0=op.c0,
+                                             k_win=op.k_win, kc=kc)
                 bound = bsr_band.band_dp_plain(op.strips.abs(), x2d.abs(), PLUS_TIMES,
                                                c0=op.c0, k_win=op.k_win, kc=kc)
-                tol = 1e-5 * torch.clamp(torch.maximum(ref.abs(), bound), min=1.0)
-                assert bool(((got - ref).abs() <= tol).all())
-            else:
-                assert torch.equal(got, ref)
+                finite_rows[kind] += _assert_band_matches(name, got, ref, bound, strict=False)
+                _assert_band_matches(name, got, ieee, bound, strict=True)
+    if name == "plus_times":
+        assert min(finite_rows.values()) > 0, finite_rows
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_stale_spans(cuda):
+    """A span table made for other strips is refused before any launch."""
+    sr = get_semiring("min_plus")
+    op = bsr_band.build_bsr_band(banded_coo(2000, 30, seed=1), sr, device=cuda)
+    x2d = bsr_band.pad_x(op, torch.zeros(op.n_cols, device=cuda), sr)
+    stale = bsr_band.band_spans(op.strips.clone(), sr)
+    before = dict(LAUNCHES)
+    with pytest.raises(ValueError, match="other strips"):
+        bsr_band.band_dp_cuda(op.strips, x2d, sr, c0=op.c0, k_win=op.k_win,
+                              stage_x=True, kc=op.k_win, spans=stale)
+    with pytest.raises(ValueError, match="other strips"):
+        bsr_band.dp_bsr_band(dataclasses.replace(op, spans=stale), torch.zeros(op.n_cols,
+                             device=cuda), sr, n_rows=2000)
+    assert LAUNCHES == before
 
 
 @pytest.mark.cuda
