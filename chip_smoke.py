@@ -1455,8 +1455,9 @@ def spmm_vs_plain_small(torch, errs) -> int:
     matrices: spmm_tiles for every semiring and strip type over bsr_ell and
     bsr_fused strips of random_coo(300, 257, 2500, seed=3) and of
     random_coo(64, 4096, 6000, seed=5) (K > 8), and over the explicit
-    columns of banded_coo(96, 40, seed=53), at m in (1, 5, 40, 200);
-    spmm_band in f32 and bf16 at m in (1, 40, 200). Bit for bit but
+    columns of banded_coo(96, 40, seed=53), at m in (1, 5, 8, 32, 40, 200),
+    through both of its thread maps; spmm_band in f32 and bf16 at m in (1,
+    40, 200). Bit for bit but
     plus_times, which must also give the same bits on a second run."""
     from sparseharness_tpu_torch.formats import banded_coo, random_coo
     from sparseharness_tpu_torch.ops import bsr_band, bsr_ell, bsr_fused, spmm_tiles
@@ -1479,7 +1480,7 @@ def spmm_vs_plain_small(torch, errs) -> int:
             bsr_band.build_bsr_band(band, sr, value_dtype=vd, device="cuda"))))
         for label, n_cols, op in ops:
             bn = op.tiles.shape[2] // op.tile_cols.shape[1]
-            for m in (1, 5, 40, 200):
+            for m in (1, 5, 8, 32, 40, 200):
                 x2d = spmm_tiles.pad_x_block(random_block(torch, sr, n_cols, m, gen), bn, sr)
                 got = spmm_tiles.spmm_tiles_cuda(op.tiles, op.tile_cols, x2d, sr)
                 ref = spmm_tiles.spmm_tiles_plain(op.tiles, op.tile_cols, x2d, sr)
@@ -1571,7 +1572,9 @@ def spmm_full_width(torch, coo, bcoo, out, errs) -> None:
                              None if bound is None else bound[:, j])
         out.append({"spmm": label, "kernel": kernel, "shape": list(y.shape),
                     "seconds": dt, "columns_vs_spmv": sorted(j for j in spmv_cols
-                                                            if j < x.shape[1])})
+                                                            if j < x.shape[1]),
+                    "spmm_tiles_launches": ({f"{label.split()[0]} m={x.shape[1]}": 1}
+                                            if kernel == "spmm_tiles" else {})})
 
     n = coo.shape[0]
     x256 = random_block(torch, PLUS_TIMES, n, 256, gen)
@@ -1641,7 +1644,7 @@ def multi_source_full_width(torch, bcoo, out) -> None:
         if launched != r.iterations:
             raise AssertionError(f"{app.__name__}: {launched} spmm_tiles launches for "
                                  f"{r.iterations} steps")
-        return r, dt
+        return r, dt, {f"blocked m={SPMM_ROOTS}": launched}
 
     t0 = time.perf_counter()
     ell_op = build_operand(bcoo, MIN_PLUS, "bsr_ell")
@@ -1649,7 +1652,7 @@ def multi_source_full_width(torch, bcoo, out) -> None:
     build_s = time.perf_counter() - t0
     for variant in ("bsr_ell", "auto"):
         kw = {} if variant == "bsr_ell" else {"variant": "auto"}
-        r, dt = run(multi_sssp, **kw)
+        r, dt, launched = run(multi_sssp, **kw)
         ax = fold_dp(spmm_bsr_ell_plain(ell_op, r.x, MIN_PLUS, n_rows=n), None, MIN_PLUS,
                      None, None)
         off_root = torch.ones_like(r.x, dtype=torch.bool)
@@ -1667,13 +1670,13 @@ def multi_source_full_width(torch, bcoo, out) -> None:
                     "certificate": "x[root_j, j] == 0, x >= 0 and A⊗X == X off the roots "
                                    "(every column); 4 columns == sssp",
                     "certified": cert, "columns_equal_single_source": singles,
-                    "reached": int((r.x < 3e38).sum())})
+                    "reached": int((r.x < 3e38).sum()), "spmm_tiles_launches": launched})
         if not (cert and singles and resolved == ("bsr_ell" if variant == "bsr_ell"
                                                   else "bsr_fused")):
             raise AssertionError(f"multi_sssp ({variant} -> {resolved}) certificate failed")
         del r, ax, off_root
 
-    r, dt = run(multi_bfs)
+    r, dt, launched = run(multi_bfs)
     t0 = time.perf_counter()
     levels = all(np.array_equal(r.aux[:, j].cpu().numpy(), bfs_levels_gold(bcoo, int(roots[j])))
                  for j in picks)
@@ -1685,7 +1688,8 @@ def multi_source_full_width(torch, bcoo, out) -> None:
                 "iterations": r.iterations, "converged": r.converged, "seconds": dt,
                 "gold_seconds": gold_s,
                 "certificate": "4 columns' levels == bfs_levels_gold and == bfs",
-                "certified": cert, "columns_equal_single_source": singles})
+                "certified": cert, "columns_equal_single_source": singles,
+                "spmm_tiles_launches": launched})
     if not (cert and singles):
         raise AssertionError("multi_bfs certificate failed")
 
@@ -1723,9 +1727,9 @@ def multi_source_routes(torch, rcoo, out) -> None:
         if launched != per_step * r.iterations:
             raise AssertionError(f"{app.__name__}: {launched} {kernel} launches for "
                                  f"{r.iterations} steps")
-        return r, dt
+        return r, dt, {f"band m={len(rts)}": launched} if kernel == "spmm_tiles" else {}
 
-    r_sssp, dt = run("spmm_tiles", 1, multi_sssp, band, roots, variant="bsr_band")
+    r_sssp, dt, launched = run("spmm_tiles", 1, multi_sssp, band, roots, variant="bsr_band")
     op = ell_operand_from_band(build_operand(band, MIN_PLUS, "bsr_band"))
     ax = fold_dp(spmm_bsr_ell_plain(op, r_sssp.x, MIN_PLUS, n_rows=n), None, MIN_PLUS,
                  None, None)
@@ -1734,12 +1738,13 @@ def multi_source_routes(torch, rcoo, out) -> None:
     cert = bool(r_sssp.converged and torch.equal(ax[off_root], r_sssp.x[off_root]))
     out.append({"app": "multi_sssp", "matrix": f"banded{n}", "variant": "bsr_band",
                 "roots": 8, "iterations": r_sssp.iterations, "seconds": dt,
-                "certificate": "A⊗X == X off the roots", "certified": cert})
+                "certificate": "A⊗X == X off the roots", "certified": cert,
+                "spmm_tiles_launches": launched})
     if not cert:
         raise AssertionError("band multi_sssp certificate failed")
     del op, ax, off_root
 
-    r, dt = run("spmm_tiles", 1, multi_bfs, band, roots, variant="bsr_band")
+    r, dt, launched = run("spmm_tiles", 1, multi_bfs, band, roots, variant="bsr_band")
     # the band is complete, so a vertex is ceil(|i − root| / BAND) levels out
     dist = (torch.arange(n, device="cuda")[:, None]
             - torch.as_tensor(roots, device="cuda")[None, :]).abs()
@@ -1748,12 +1753,12 @@ def multi_source_routes(torch, rcoo, out) -> None:
     out.append({"app": "multi_bfs", "matrix": f"banded{n}", "variant": "bsr_band",
                 "roots": 8, "iterations": r.iterations, "seconds": dt,
                 "certificate": f"levels == ceil(|i − root| / {BAND}), every column",
-                "certified": cert})
+                "certified": cert, "spmm_tiles_launches": launched})
     if not cert:
         raise AssertionError("band multi_bfs certificate failed")
 
     rroots = np.random.default_rng(31).choice(rcoo.shape[0], 8, replace=False)
-    r, dt = run("sell2", 8, multi_bfs, rcoo, rroots, variant="auto")
+    r, dt, _ = run("sell2", 8, multi_bfs, rcoo, rroots, variant="auto")
     cert = bool(r.converged and all(np.array_equal(r.aux[:, j].cpu().numpy(),
                                                    bfs_levels_gold(rcoo, int(rroots[j])))
                                     for j in (0, 7)))
@@ -1778,6 +1783,7 @@ def multi_source_routes(torch, rcoo, out) -> None:
         return seen["perm"]
 
     apps.rcm_permutation = watched_rcm
+    before = LAUNCHES["spmm_tiles"]
     try:
         t0 = time.perf_counter()
         r = multi_sssp(shuffled, inv_scramble[roots], variant="auto", reorder="rcm")
@@ -1785,6 +1791,7 @@ def multi_source_routes(torch, rcoo, out) -> None:
         dt = time.perf_counter() - t0
     finally:
         apps.rcm_permutation = rcm_permutation
+    launched = LAUNCHES["spmm_tiles"] - before
     reordered = permute_coo(shuffled, seen["perm"])
     resolved = build_operand_auto(reordered, MIN_PLUS)[0]
     # shuffled vertex i is band vertex scramble[i]
@@ -1794,22 +1801,33 @@ def multi_source_routes(torch, rcoo, out) -> None:
                 "iterations": r.iterations, "seconds": dt, "rcm_seconds": seen["seconds"],
                 "bandwidth_before": bandwidth(shuffled), "bandwidth_after": bandwidth(reordered),
                 "certificate": "resolves bsr_band; x == the unshuffled band's x, un-permuted",
-                "certified": bool(same and resolved == "bsr_band")})
+                "certified": bool(same and resolved == "bsr_band"),
+                "spmm_tiles_launches": {"band m=8": launched}})
     if not (same and resolved == "bsr_band"):
         raise AssertionError(f"rcm multi_sssp: resolved {resolved}, equal {same}")
 
 
 def spmm_kernel_times(torch, coo, bcoo) -> dict:
-    """Both SpMM kernels at the full-width points: the median of five
-    20-call windows, the chunked plain version, torch.sparse.mm on a CSR
-    tensor of the same matrix (cuSPARSE SpMM, plus_times in f32 only: no
-    library call computes the other semirings) and the bound. The bound
-    counts the strips (and tile_cols), X once and Y once, and 2 operations
-    per nonzero per column: the strips' pad slots are bytes the kernel must
-    read but no work the product needs."""
+    """Both SpMM kernels at the full-width points, and spmm_tiles at the
+    band-routed multi-source solves' own shape (the explicit columns of
+    banded_coo(SPMM_BAND_N, BAND, seed=1) at m = 8, where most of its
+    launches run): the median of five 20-call windows, the chunked plain
+    version, torch.sparse.mm on a CSR tensor of the same matrix (cuSPARSE
+    SpMM, plus_times in f32 only: no library call computes the other
+    semirings) and the bound. The bound counts the strips (and tile_cols),
+    X once and Y once, and 2 operations per nonzero per column: the strips'
+    pad slots are bytes the kernel must read but no work the product
+    needs. On the band's operand the strip bytes are each row's occupied
+    span of values (spans.lanes, as the band SpMV's bound counts them): a
+    pad's product is the ⊕ identity, or for plus_times comes from X alone;
+    ``layout_bound_ms`` counts every strip slot. Each spmm_tiles point is
+    also held against the plain version on the inputs it is timed on (bit
+    for bit, plus_times within PT_DELTA · max(1, |y|, Σ|a·x|)), its largest
+    |Δ| in ``max_abs_err``."""
+    from sparseharness_tpu_torch.formats import banded_coo
     from sparseharness_tpu_torch.harness import device_hbm_bandwidth
     from sparseharness_tpu_torch.ops import Geometry, bsr_band, build_operand, spmm_tiles
-    from sparseharness_tpu_torch.semiring import MIN_PLUS, PLUS_TIMES
+    from sparseharness_tpu_torch.semiring import MIN_PLUS, OR_AND, PLUS_TIMES
 
     bw = device_hbm_bandwidth(torch.cuda.get_device_name(0))
     gen = torch.Generator(device="cuda").manual_seed(41)
@@ -1833,6 +1851,24 @@ def spmm_kernel_times(torch, coo, bcoo) -> dict:
         del op, x2d
     del x256, csr
 
+    def tiles_point(label, op, x2d, sr, entry, csr, n) -> None:
+        """Time spmm_tiles at one point and hold it against the plain
+        version on the same inputs."""
+        def kernel():
+            return spmm_tiles.spmm_tiles_cuda(op.tiles, op.tile_cols, x2d, sr)
+
+        ref = spmm_tiles.spmm_tiles_plain(op.tiles, op.tile_cols, x2d, sr)
+        sum_abs = (spmm_tiles.spmm_tiles_plain(op.tiles.abs(), op.tile_cols, x2d.abs(),
+                                               PLUS_TIMES) if sr is PLUS_TIMES else None)
+        entry["max_abs_err"] = check_kernel(torch, f"spmm_tiles {label}", kernel(), ref, sum_abs)
+        del ref, sum_abs
+        entry.update(time_windows(torch, kernel))
+        entry["plain_ms"] = time_ms(torch, lambda: spmm_tiles.spmm_tiles_plain(
+            op.tiles, op.tile_cols, x2d, sr), 2)
+        entry["library_ms"] = (time_ms(torch, lambda: torch.sparse.mm(csr, x2d[:n]), 10)
+                               if sr is PLUS_TIMES else None)
+        res[label] = entry
+
     n = bcoo.shape[0]
     x128 = random_block(torch, PLUS_TIMES, n, 128, gen)
     csr = csr_of(torch, bcoo)
@@ -1841,17 +1877,26 @@ def spmm_kernel_times(torch, coo, bcoo) -> dict:
         bn = op.tiles.shape[2] // op.tile_cols.shape[1]
         x2d = spmm_tiles.pad_x_block(x128 if m == 128 else x128[:, :m].contiguous(), bn, sr)
         out_bytes = op.tiles.shape[0] * op.tiles.shape[1] * m * 4
-        entry = bound(tensor_bytes(op.tiles, op.tile_cols, x2d) + out_bytes,
-                      2 * bcoo.nnz * m, bw)
-        entry.update(time_windows(torch, lambda: spmm_tiles.spmm_tiles_cuda(
-            op.tiles, op.tile_cols, x2d, sr)))
-        entry["plain_ms"] = time_ms(torch, lambda: spmm_tiles.spmm_tiles_plain(
-            op.tiles, op.tile_cols, x2d, sr), 2)
-        entry["library_ms"] = (time_ms(torch, lambda: torch.sparse.mm(csr, x2d[:n]), 10)
-                               if sr is PLUS_TIMES else None)
-        res[f"blocked {sr.name} m={m}"] = entry
+        tiles_point(f"blocked {sr.name} m={m}", op, x2d, sr,
+                    bound(tensor_bytes(op.tiles, op.tile_cols, x2d) + out_bytes,
+                          2 * bcoo.nnz * m, bw), csr, n)
         del op, x2d
-    del csr
+    del csr, x128
+
+    band = banded_coo(SPMM_BAND_N, BAND, seed=1)
+    n = band.shape[0]
+    csr = csr_of(torch, band)
+    for sr in (MIN_PLUS, OR_AND, PLUS_TIMES):
+        bop = build_operand(band, sr, "bsr_band")
+        op = spmm_tiles.ell_operand_from_band(bop)
+        bn = op.tiles.shape[2] // op.tile_cols.shape[1]
+        x2d = spmm_tiles.pad_x_block(random_block(torch, sr, n, 8, gen), bn, sr)
+        rest = tensor_bytes(op.tile_cols, x2d) + op.tiles.shape[0] * op.tiles.shape[1] * 8 * 4
+        entry = bound(bop.spans.lanes * op.tiles.element_size() + rest, 2 * band.nnz * 8, bw)
+        layout = bound(tensor_bytes(op.tiles) + rest, 2 * band.nnz * 8, bw)
+        entry.update(layout_bytes=layout["bytes"], layout_bound_ms=layout["bound_ms"])
+        tiles_point(f"band {sr.name} m=8", op, x2d, sr, entry, csr, n)
+        del bop, op, x2d
     return res
 
 
@@ -2006,7 +2051,15 @@ def main() -> int:
         multi_source_routes(torch, rcoo, route_lines)
         f.update(card=card, nvidia_smi=smi, runs=route_lines)
     slaunches = dict(LAUNCHES)
-    emit({"phase": "main_path_spmm_launches", "launches": slaunches})
+    by_shape = {}
+    for line in sp_lines + ms_lines + route_lines:
+        for point, count in line.get("spmm_tiles_launches", {}).items():
+            by_shape[point] = by_shape.get(point, 0) + count
+    emit({"phase": "main_path_spmm_launches", "launches": slaunches,
+          "spmm_tiles_by_shape": by_shape})
+    if sum(by_shape.values()) != slaunches["spmm_tiles"]:
+        raise AssertionError(f"spmm_tiles launches by shape {by_shape} do not add up to "
+                             f"{slaunches['spmm_tiles']}")
     for kernel in ("spmm_band", "spmm_tiles"):
         if slaunches[kernel] <= 0:
             raise AssertionError(f"the {kernel} kernel never launched on the SpMM path")
@@ -2092,17 +2145,31 @@ def main() -> int:
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": rtimes["library_ms"],
     })
-    for name, point, replaces in (
-            ("spmm_band", "band float32 m=128", "sparseharness_tpu/ops/pallas_bsr_band.py:334"),
-            ("spmm_tiles", "blocked plus_times m=128", "sparseharness_tpu/ops/spmm_tiles.py:130")):
-        t = stimes[point]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"sparseharness_tpu_torch/ops/csrc/{name}.cu", "replaces": replaces,
-            "launches": launches[name], "max_abs_err": serrs[name], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
-        })
+    t = stimes["band float32 m=128"]
+    kernels.append({
+        "name": "spmm_band", "route": "cuda",
+        "source": "sparseharness_tpu_torch/ops/csrc/spmm_band.cu",
+        "replaces": "sparseharness_tpu/ops/pallas_bsr_band.py:334",
+        "launches": launches["spmm_band"], "max_abs_err": serrs["spmm_band"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"],
+    })
+    # spmm_tiles at the shape where most of its main-path launches run (the
+    # row map), and in `points` beside it the blocked m = 128 point (the
+    # tile map), each with its own launches, error, times and bound
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
+    points = {point: {"launches": by_shape.get(shape, 0), **{k: stimes[point][k] for k in keys}}
+              for point, shape in (("band min_plus m=8", "band m=8"),
+                                   ("blocked plus_times m=128", "blocked m=128"))}
+    points["band min_plus m=8"]["layout_bound_ms"] = stimes["band min_plus m=8"]["layout_bound_ms"]
+    t = points["band min_plus m=8"]
+    kernels.append({
+        "name": "spmm_tiles", "route": "cuda",
+        "source": "sparseharness_tpu_torch/ops/csrc/spmm_tiles.cu",
+        "replaces": "sparseharness_tpu/ops/spmm_tiles.py:130",
+        "launches": launches["spmm_tiles"], "point": "band min_plus m=8",
+        **{k: t[k] for k in keys}, "points": points,
+    })
     # sell_fused also replaces level 0 of pallas_sell.py:361, sell_level its
     # depths 1 and more; the later levels' time is the card's (profiler),
     # since the host enqueues their small launches slower than they run

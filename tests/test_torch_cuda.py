@@ -304,13 +304,20 @@ def _x_block(sr, n, m, seed):
     return torch.from_numpy(x)
 
 
+#: widths of X: the row map's (up to 32) with column tails and m no
+#: multiple of 4, and the tile map's, with a second column tile at 200
+SPMM_M = (1, 2, 5, 8, 16, 31, 32, 40, 64, 127, 128, 200)
+
+
 def _spmm_tile_operands(sr, value_dtype, cuda):
     """(n_cols, strip operand): random blocks as bsr_ell and as bsr_fused
-    (views of its slabs), K > 8, and a band whose window is wider than the
-    matrix, through its explicit columns; and tile shapes whose bm is no
-    multiple of 4, whose bn is no multiple of 4 (the kernel's scalar
+    (views of its slabs), K > 8, a band whose window is wider than the
+    matrix and a band with K = 3 (the band-routed multi-source solves'
+    shape), both through their explicit columns; tile shapes whose bm is no
+    multiple of 4, whose bn is no multiple of 4 (the kernels' scalar
     loads), whose rows take several passes (bm = 72) and whose shared
-    memory passes 48 KB."""
+    memory passes 48 KB; and tile_cols holding columns outside X's blocks,
+    which both versions clamp into range."""
     ops = []
     for coo in (random_coo(300, 257, 2500, seed=3), random_coo(64, 4096, 6000, seed=5)):
         ops.append((coo.shape[1], bsr_ell.build_bsr_ell(coo, sr, value_dtype=value_dtype,
@@ -321,21 +328,29 @@ def _spmm_tile_operands(sr, value_dtype, cuda):
     for bm, bn in ((6, 64), (5, 30), (16, 256), (72, 128)):
         ops.append((coo.shape[1], bsr_ell.build_bsr_ell(coo, sr, bm=bm, bn=bn,
                                                          value_dtype=value_dtype, device=cuda)))
-    band = bsr_band.build_bsr_band(banded_coo(96, 40, seed=53), sr, value_dtype=value_dtype,
-                                   device=cuda)
-    ops.append((96, spmm_tiles.ell_operand_from_band(band)))
+    for n, width in ((96, 40), (2000, 63)):
+        band = bsr_band.build_bsr_band(banded_coo(n, width, seed=53), sr,
+                                       value_dtype=value_dtype, device=cuda)
+        ops.append((n, spmm_tiles.ell_operand_from_band(band)))
+    assert ops[-1][1].tile_cols.shape[1] == 3
+    op = bsr_ell.build_bsr_ell(random_coo(200, 1000, 3000, seed=9), sr,
+                               value_dtype=value_dtype, device=cuda)
+    cols = op.tile_cols.clone()
+    cols[::3, 0] = -5
+    cols[1::3, -1] = 1000 // 128 + 7
+    ops.append((1000, op._replace(tile_cols=cols)))
     return ops
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,value_dtype", CASES)
 def test_spmm_tiles_kernel_matches_plain(name, value_dtype, cuda):
-    """Bit for bit but plus_times (within the tolerance), column tails and
-    more than one column tile (m = 200), the same bits on a second run."""
+    """Bit for bit but plus_times (within the tolerance), at every width of
+    SPMM_M through both thread maps, and the same bits on a second run."""
     sr = get_semiring(name)
     for n_cols, op in _spmm_tile_operands(sr, value_dtype, cuda):
         bn = op.tiles.shape[2] // op.tile_cols.shape[1]
-        for m in (1, 5, 40, 200):
+        for m in SPMM_M:
             x2d = spmm_tiles.pad_x_block(_x_block(sr, n_cols, m, seed=m).to(cuda), bn, sr)
             got = spmm_tiles.spmm_tiles_cuda(op.tiles, op.tile_cols, x2d, sr)
             again = spmm_tiles.spmm_tiles_cuda(op.tiles, op.tile_cols, x2d, sr)
@@ -347,7 +362,7 @@ def test_spmm_tiles_kernel_matches_plain(name, value_dtype, cuda):
                                                     PLUS_TIMES)
             assert got.dtype == ref.dtype and got.shape == ref.shape
             _assert_kernel_matches(name, got, ref, bound)
-            assert torch.equal(got, again)
+            assert torch.equal(got, again), f"m={m}: two runs differ"
 
 
 @pytest.mark.cuda

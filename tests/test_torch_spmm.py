@@ -31,6 +31,7 @@ from sparseharness_tpu_torch.ops import (
 )
 from sparseharness_tpu_torch.ops import spmm_tiles as ttiles
 from sparseharness_tpu_torch.semiring import REGISTRY, PLUS_TIMES, get_semiring
+from sparseharness_tpu_torch.semiring.core import INT_MAX, INT_MIN, _carrier
 
 PT_DELTA = 1e-5
 
@@ -245,6 +246,143 @@ def test_spmm_bsr_ell_plain_equals_jax_kernel(name, m):
         got.numpy(), spmm_bsr_ell_plain(top, torch.from_numpy(X), sr, n_rows=90).numpy())
     ref = np.asarray(jtiles.spmm_bsr_ell(jop, jnp.asarray(X), jsr_, n_rows=90))
     _assert_match(sr, got.numpy(), ref, coo_t, X)
+
+
+@pytest.mark.parametrize("n", [2000, 1 << 14])
+@pytest.mark.parametrize("name", ["min_plus", "or_and"])
+def test_spmm_bsr_ell_plain_on_band_operand_equals_jax_kernel(name, n):
+    """The band-routed multi-source solves' operand (the band's explicit
+    columns, K = 3) at m = 8: spmm_bsr_ell_plain against JAX's spmm_bsr_ell
+    on the JAX band's view, bit for bit."""
+    sr, jsr_ = get_semiring(name), jsr.get_semiring(name)
+    X = _x_block(sr, n, 8, seed=15)
+    top = ttiles.ell_operand_from_band(
+        build_operand(tf.banded_coo(n, 63, seed=1), sr, "bsr_band", device="cpu"))
+    jop = jtiles.ell_operand_from_band(
+        jops.build_operand(jf.banded_coo(n, 63, seed=1), jsr_, "bsr_band"))
+    assert top.tile_cols.shape[1] == 3
+    got = spmm_bsr_ell_plain(top, torch.from_numpy(X), sr, n_rows=n)
+    ref = np.asarray(jtiles.spmm_bsr_ell(jop, jnp.asarray(X), jsr_, n_rows=n))
+    _assert_match(sr, got.numpy(), ref)
+
+
+# ------------------------------------------- the kernel's row map on the CPU
+
+#: the true ⊕ identity each partial of the kernels starts from (semiring.cuh)
+IDENTITY = {"plus_times": 0.0, "min_plus": float("inf"), "or_and": INT_MIN,
+            "max_min": float("-inf"), "max_times": float("-inf"), "max_right": INT_MIN,
+            "min_right": INT_MAX}
+#: lanes a group of the row map: the kernel's 8 (m ≤ 8) and 4 (m > 8), and
+#: 2, which scripts/probe_spmm_tiles_cuda.py also times
+ROW_SPLITS = [2, 4, 8]
+#: rows and columns a thread of the row map (kNarrowRows, kNarrowC)
+ROW_TILE = 8
+
+
+def _row_map_threads(n_rows, m, split, threads=256):
+    """spmm_rows_kernel's thread map (csrc/spmm_tiles.cu) over every block:
+    each thread's first row, first column, lane and liveness."""
+    group_threads = m // ROW_TILE * split
+    groups_per_block = threads // group_threads
+    n_blocks = -(-(n_rows // ROW_TILE) // groups_per_block)
+    t = torch.arange(n_blocks * threads)
+    local = t % threads // group_threads
+    within = t % threads - local * group_threads
+    row0 = (t // threads * groups_per_block + local) * ROW_TILE
+    live = (local < groups_per_block) & (row0 < n_rows)
+    return row0, within // split * ROW_TILE, within % split, live
+
+
+def _row_map_model(tiles, tile_cols, x2d, sr, split):
+    """The row map's dp in torch: lane s of a group ⊕-accumulates, in order,
+    the slots of its 4-slot chunks (chunk q of tile k when q % split == s),
+    from the true ⊕ identity; then the group folds its partials with xor
+    steps 1, 2, 4, ... as the shuffles do. How many rows and columns a
+    thread takes does not change a single value."""
+    carrier, add, mul, *_ = _carrier(sr)
+    r_blocks, bm, kbn = tiles.shape
+    k = tile_cols.shape[1]
+    bn = kbn // k
+    m = x2d.shape[1]
+    st = tiles.float() if tiles.dtype == torch.bfloat16 else tiles
+    st = st.reshape(r_blocks * bm, kbn)
+    cols = tile_cols.long().clamp(0, x2d.shape[0] // bn - 1)
+    block_row = torch.arange(r_blocks * bm) // bm
+    parts = []
+    for s in range(split):
+        acc = torch.full((r_blocks * bm, m), IDENTITY[sr.name], dtype=carrier)
+        for slot in range(kbn):
+            kk, l = divmod(slot, bn)
+            if l // 4 % split != s:
+                continue
+            xv = x2d[cols[block_row, kk] * bn + l]  # (rows, m)
+            acc = add(acc, mul(xv, st[:, slot:slot + 1]))
+        parts.append(acc)
+    d = 1
+    while d < split:
+        parts = [add(parts[s], parts[s ^ d]) for s in range(split)]
+        d *= 2
+    return parts[0]
+
+
+@pytest.mark.parametrize("split", ROW_SPLITS)
+@pytest.mark.parametrize("m", [8, 16, 24, 32, 40, 48, 56, 64])
+@pytest.mark.parametrize("bm", [8, 16, 24, 72])
+def test_row_map_writes_each_output_once(bm, m, split):
+    """Every output of the padded dp has exactly one writer (lane 0 of its
+    group), every thread but a block's remainder owns outputs, a thread's
+    rows lie in one block-row, and a group's lanes are adjacent and
+    aligned in their warp (the xor shuffles' reach)."""
+    group_threads = m // ROW_TILE * split
+    rows_per_block = 256 // group_threads * ROW_TILE
+    n_rows = (2 * rows_per_block // bm + 3) * bm  # three blocks or more
+    row0, col, lane, live = _row_map_threads(n_rows, m, split)
+    assert bool((row0[live] // bm == (row0[live] + ROW_TILE - 1) // bm).all())
+    writes = torch.zeros((n_rows, m), dtype=torch.int64)
+    writer = live & (lane == 0)
+    ones = torch.ones(int(writer.sum()), dtype=torch.int64)
+    for i in range(ROW_TILE):
+        for j in range(ROW_TILE):
+            writes.index_put_((row0[writer] + i, col[writer] + j), ones, accumulate=True)
+    assert bool((writes == 1).all())
+    idle = (~live).view(-1, 256).sum(1)
+    assert int(idle[:-1].max()) < group_threads  # only the remainder
+    t = torch.arange(row0.numel())
+    group = t - lane
+    assert bool((group % split == 0).all()) and bool((group // 32 == t // 32).all())
+
+
+@pytest.mark.parametrize("split", ROW_SPLITS)
+@pytest.mark.parametrize("name,value_dtype", [
+    (n, vd) for n in sorted(REGISTRY) for vd in ("float32", "bfloat16")
+    if vd == "float32" or get_semiring(n).dtype == torch.float32])
+def test_row_map_model_matches_plain(name, value_dtype, split):
+    """The row map's order of ⊕ and fold gives the plain version's dp: bit
+    for bit for the six min/max/or semirings, plus_times within the
+    tolerance, f32 and bf16 strips; on the band's explicit columns (K = 3,
+    bn = 128) at m = 8 and on 16 × 64 tiles at m = 16 with columns outside
+    X's blocks."""
+    sr = get_semiring(name)
+    band = ttiles.ell_operand_from_band(
+        build_operand(tf.banded_coo(300, 63, seed=1), sr, "bsr_band",
+                      Geometry(8, 128, value_dtype), device="cpu"))
+    ell = build_operand(tf.random_coo(60, 300, 500, seed=16), sr, "bsr_ell",
+                        Geometry(16, 64, value_dtype), device="cpu")
+    cols = ell.tile_cols.clone()
+    cols[::2, 0] = -3
+    cols[1::2, -1] = 99
+    for op, n_cols, m in ((band, 300, 8), (ell._replace(tile_cols=cols), 300, 16)):
+        bn = op.tiles.shape[2] // op.tile_cols.shape[1]
+        X = torch.from_numpy(_x_block(sr, n_cols, m, seed=17))
+        x2d = ttiles.pad_x_block(X, bn, sr)
+        got = _row_map_model(op.tiles, op.tile_cols, x2d, sr, split)
+        ref = ttiles.spmm_tiles_plain(op.tiles, op.tile_cols, x2d, sr)
+        if name == "plus_times":
+            bound = ttiles.spmm_tiles_plain(op.tiles.abs(), op.tile_cols, x2d.abs(), PLUS_TIMES)
+            tol = PT_DELTA * torch.clamp(torch.maximum(ref.abs(), bound), min=1.0)
+            assert bool(((got - ref).abs() <= tol).all())
+        else:
+            assert torch.equal(got, ref)
 
 
 def test_spmm_plain_chunks_agree(monkeypatch):
