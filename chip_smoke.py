@@ -78,7 +78,11 @@ result. Phases:
    random_coo(300, 257, 2500, seed=3) and random_coo(64, 4096, 6000,
    seed=5) (K > 8) and the explicit columns of banded_coo(96, 40,
    seed=53), spmm_band in f32 and bf16, at m up to 200; bit for bit except
-   plus_times (within the tolerance above, and the same bits twice);
+   plus_times (within the tolerance above, and the same bits twice); then
+   spmm_band at full width (the bench band, f32, m = 128) on an X with
+   ±inf and NaN in 96 places: NaN and ±inf exactly where the plain
+   version's are (a pad the kernel skips meets a non-finite value), the
+   rest within the tolerance, the same bits twice;
 14. the SpMM path, with the launch counters reset just before phase 14
    and read just after phase 16: spmm at full width on the bench band (m =
    128 and 256 in f32, 128 with bf16 strips: spmm_band) and on the blocked
@@ -95,7 +99,10 @@ result. Phases:
    unshuffled solve;
 17. SpMM kernel times at the full-width points: the median of five 20-call
    windows, the plain version, torch.sparse.mm on a CSR tensor (cuSPARSE,
-   f32 plus_times only) and the bound;
+   f32 plus_times only) and the bound (on the band, each row's span of
+   values, beside the every-slot layout bound; the units the operations
+   are counted at), and on the blocked matrix the X bytes the kernel
+   reads by its design;
 18. the sell kernels (the fused depth-0 kernel and the gather-reduce level)
    against their plain versions, the fused kernel alone against
    fused_plain and the whole dp against dp_sell_plain: all seven semirings
@@ -758,10 +765,13 @@ def tensor_bytes(*tensors) -> int:
 
 
 def bound(n_bytes: int, n_ops: int, bw: float) -> dict:
+    """The least time: the larger of the bytes over the memory rate and
+    the operations over the rate of the units the kernels use (FP32 outside
+    the tensor cores: none of the port's kernels uses a tensor core)."""
     bytes_ms, ops_ms = n_bytes / bw * 1e3, n_ops / F32_PEAK_OPS * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": n_bytes}
+            "bytes": n_bytes, "ops_units": "FP32, 67 TFLOP/s"}
 
 
 def blocked_kernel_times(torch, coo) -> dict:
@@ -1500,15 +1510,56 @@ def spmm_vs_plain_small(torch, errs) -> int:
                 x2d = bsr_band.pad_x_block(op, random_block(torch, PLUS_TIMES, coo.shape[1],
                                                             m, gen))
                 args = dict(c0=op.c0, k_win=op.k_win)
-                got = bsr_band.band_spmm_cuda(op.strips, x2d, **args)
+                got = bsr_band.band_spmm_cuda(op.strips, x2d, spans=op.spans, **args)
                 check_same_bits(torch, f"spmm_band {coo.shape} {vd} m={m}", got,
-                                bsr_band.band_spmm_cuda(op.strips, x2d, **args))
+                                bsr_band.band_spmm_cuda(op.strips, x2d, spans=op.spans, **args))
                 ref = bsr_band.band_spmm_plain(op.strips, x2d, **args)
                 bound = bsr_band.band_spmm_plain(op.strips.abs(), x2d, **args)
                 errs["spmm_band"] = max(errs["spmm_band"], check_kernel(
                     torch, f"spmm_band {coo.shape} {vd} m={m}", got, ref, bound))
                 checked += 1
     return checked
+
+
+def spmm_band_nonfinite(torch, coo, errs) -> dict:
+    """spmm_band at full width (the bench band, f32 strips, m = 128) on an
+    X with +inf, −inf and NaN in 96 seeded places, against the plain
+    version, which multiplies every strip slot: NaN exactly where the plain
+    version's is (a pad it skips meets a non-finite X value: 0·inf), ±inf
+    equal, the rows and columns whose window holds no non-finite value
+    within PT_DELTA · max(1, |y|, Σ|a·x|), and the same bits (NaNs
+    included) on a second call."""
+    from sparseharness_tpu_torch.ops import Geometry, bsr_band, build_operand
+    from sparseharness_tpu_torch.semiring import PLUS_TIMES
+
+    n = coo.shape[0]
+    op = build_operand(coo, PLUS_TIMES, "bsr_band", Geometry(8, 128, "float32"))
+    gen = torch.Generator(device="cuda").manual_seed(59)
+    x = random_block(torch, PLUS_TIMES, n, 128, gen)
+    rng = np.random.default_rng(61)
+    rows = torch.as_tensor(rng.integers(0, n, 96), device="cuda")
+    cols = torch.as_tensor(rng.integers(0, 128, 96), device="cuda")
+    x[rows, cols] = torch.tensor([float("inf"), float("-inf"), float("nan")],
+                                 device="cuda").repeat(32)
+    x2d = bsr_band.pad_x_block(op, x)
+    args = dict(c0=op.c0, k_win=op.k_win, spans=op.spans)
+    got = bsr_band.band_spmm_cuda(op.strips, x2d, **args)
+    check_same_bits(torch, "spmm_band non-finite X", got,
+                    bsr_band.band_spmm_cuda(op.strips, x2d, **args))
+    ref = bsr_band.band_spmm_plain(op.strips, x2d, c0=op.c0, k_win=op.k_win)
+    sum_abs = bsr_band.band_spmm_plain(op.strips.abs(), x2d.abs(), c0=op.c0, k_win=op.k_win)
+    nan = ref.isnan()
+    inf = ref.isinf()
+    if not torch.equal(got.isnan(), nan):
+        raise AssertionError(f"spmm_band non-finite X: NaN in {int(got.isnan().sum())} "
+                             f"outputs, the plain version in {int(nan.sum())}")
+    if not torch.equal(got[inf], ref[inf]):
+        raise AssertionError("spmm_band non-finite X: an infinite output differs")
+    fin = sum_abs.isfinite()
+    errs["spmm_band"] = max(errs["spmm_band"], check_kernel(
+        torch, "spmm_band non-finite X", got[fin], ref[fin], sum_abs[fin]))
+    return {"nan_outputs": int(nan.sum()), "inf_outputs": int(inf.sum()),
+            "finite_checked": int(fin.sum()), "non_finite_x": 96}
 
 
 def column_spmvs(torch, coo, op, variant, sr, x, cols, gold_coo) -> dict:
@@ -1573,8 +1624,9 @@ def spmm_full_width(torch, coo, bcoo, out, errs) -> None:
         out.append({"spmm": label, "kernel": kernel, "shape": list(y.shape),
                     "seconds": dt, "columns_vs_spmv": sorted(j for j in spmv_cols
                                                             if j < x.shape[1]),
-                    "spmm_tiles_launches": ({f"{label.split()[0]} m={x.shape[1]}": 1}
-                                            if kernel == "spmm_tiles" else {})})
+                    "spmm_tiles_launches": (
+                        {f"{label.split()[0]} {sr.name} m={x.shape[1]}": 1}
+                        if kernel == "spmm_tiles" else {})})
 
     n = coo.shape[0]
     x256 = random_block(torch, PLUS_TIMES, n, 256, gen)
@@ -1644,7 +1696,8 @@ def multi_source_full_width(torch, bcoo, out) -> None:
         if launched != r.iterations:
             raise AssertionError(f"{app.__name__}: {launched} spmm_tiles launches for "
                                  f"{r.iterations} steps")
-        return r, dt, {f"blocked m={SPMM_ROOTS}": launched}
+        sr = "min_plus" if app is multi_sssp else "or_and"
+        return r, dt, {f"blocked {sr} m={SPMM_ROOTS}": launched}
 
     t0 = time.perf_counter()
     ell_op = build_operand(bcoo, MIN_PLUS, "bsr_ell")
@@ -1820,7 +1873,11 @@ def spmm_kernel_times(torch, coo, bcoo) -> dict:
     needs. On the band's operand the strip bytes are each row's occupied
     span of values (spans.lanes, as the band SpMV's bound counts them): a
     pad's product is the ⊕ identity, or for plus_times comes from X alone;
-    ``layout_bound_ms`` counts every strip slot. Each spmm_tiles point is
+    ``layout_bound_ms`` counts every strip slot. spmm_band's bound counts
+    each row's span of values too. The operations are counted at the rate
+    of the FP32 units (``ops_units``). The blocked points carry
+    ``x_read_bytes``, the X bytes the kernel reads by its design (each tile
+    slot's X block once a block-row), and that rate. Each spmm_tiles point is
     also held against the plain version on the inputs it is timed on (bit
     for bit, plus_times within PT_DELTA · max(1, |y|, Σ|a·x|)), its largest
     |Δ| in ``max_abs_err``."""
@@ -1838,11 +1895,13 @@ def spmm_kernel_times(torch, coo, bcoo) -> dict:
     for vd, m in (("float32", 128), ("float32", 256), ("bfloat16", 128)):
         op = build_operand(coo, PLUS_TIMES, "bsr_band", Geometry(8, 128, vd))
         x2d = bsr_band.pad_x_block(op, x256 if m == 256 else x256[:, :m].contiguous())
-        out_bytes = op.strips.shape[0] * op.strips.shape[1] * m * 4
-        entry = bound(tensor_bytes(op.strips, x2d) + out_bytes, 2 * coo.nnz * m, bw)
+        rest = tensor_bytes(x2d) + op.strips.shape[0] * op.strips.shape[1] * m * 4
+        entry = bound(op.spans.lanes * op.strips.element_size() + rest, 2 * coo.nnz * m, bw)
+        layout = bound(tensor_bytes(op.strips) + rest, 2 * coo.nnz * m, bw)
+        entry.update(layout_bytes=layout["bytes"], layout_bound_ms=layout["bound_ms"])
         args = dict(c0=op.c0, k_win=op.k_win)
-        entry.update(time_windows(torch, lambda: bsr_band.band_spmm_cuda(op.strips, x2d,
-                                                                         **args)))
+        entry.update(time_windows(torch, lambda: bsr_band.band_spmm_cuda(
+            op.strips, x2d, spans=op.spans, **args)))
         entry["plain_ms"] = time_ms(torch, lambda: bsr_band.band_spmm_plain(op.strips, x2d,
                                                                             **args), 2)
         if vd == "float32":
@@ -1877,9 +1936,14 @@ def spmm_kernel_times(torch, coo, bcoo) -> dict:
         bn = op.tiles.shape[2] // op.tile_cols.shape[1]
         x2d = spmm_tiles.pad_x_block(x128 if m == 128 else x128[:, :m].contiguous(), bn, sr)
         out_bytes = op.tiles.shape[0] * op.tiles.shape[1] * m * 4
-        tiles_point(f"blocked {sr.name} m={m}", op, x2d, sr,
-                    bound(tensor_bytes(op.tiles, op.tile_cols, x2d) + out_bytes,
-                          2 * bcoo.nnz * m, bw), csr, n)
+        label = f"blocked {sr.name} m={m}"
+        tiles_point(label, op, x2d, sr, bound(tensor_bytes(op.tiles, op.tile_cols, x2d)
+                                              + out_bytes, 2 * bcoo.nnz * m, bw), csr, n)
+        # X as the kernel reads it: each tile slot's (bn, m) block once for
+        # its block-row (bm = 8: the row map's 8-row group, the tile map's
+        # block), through L2
+        x_read = op.tile_cols.numel() * bn * m * 4
+        res[label].update(x_read_bytes=x_read, x_read_GBps=x_read / res[label]["ms"] / 1e6)
         del op, x2d
     del csr, x128
 
@@ -2037,6 +2101,8 @@ def main() -> int:
     serrs = {"spmm_band": 0.0, "spmm_tiles": 0.0}
     with Phase("spmm_kernel_vs_plain_small") as f:
         f["comparisons"] = spmm_vs_plain_small(torch, serrs)
+    with Phase("spmm_band_nonfinite") as f:
+        f.update(spmm_band_nonfinite(torch, coo, serrs))
 
     for key in LAUNCHES:
         LAUNCHES[key] = 0
@@ -2152,16 +2218,21 @@ def main() -> int:
         "replaces": "sparseharness_tpu/ops/pallas_bsr_band.py:334",
         "launches": launches["spmm_band"], "max_abs_err": serrs["spmm_band"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-        "library_ms": t["library_ms"],
+        "library_ms": t["library_ms"], "layout_bound_ms": t["layout_bound_ms"],
     })
-    # spmm_tiles at the shape where most of its main-path launches run (the
-    # row map), and in `points` beside it the blocked m = 128 point (the
-    # tile map), each with its own launches, error, times and bound
+    # spmm_tiles at the shape where most of its main-path launches run, and
+    # in `points` beside it the blocked m = 128 points, each with its own
+    # launches, error, times and bound (the band's launches are min_plus and
+    # or_and together)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err")
     points = {point: {"launches": by_shape.get(shape, 0), **{k: stimes[point][k] for k in keys}}
               for point, shape in (("band min_plus m=8", "band m=8"),
-                                   ("blocked plus_times m=128", "blocked m=128"))}
+                                   ("blocked plus_times m=128", "blocked plus_times m=128"),
+                                   ("blocked min_plus m=128", "blocked min_plus m=128"))}
     points["band min_plus m=8"]["layout_bound_ms"] = stimes["band min_plus m=8"]["layout_bound_ms"]
+    for point in ("blocked plus_times m=128", "blocked min_plus m=128"):
+        points[point]["x_read_bytes"] = stimes[point]["x_read_bytes"]
+        points[point]["x_read_GBps"] = stimes[point]["x_read_GBps"]
     t = points["band min_plus m=8"]
     kernels.append({
         "name": "spmm_tiles", "route": "cuda",

@@ -31,9 +31,11 @@ version of the same padded dp, which the tests and ``chip_smoke.py`` hold
 the kernel against.
 
 :func:`spmm_band` is the band's plus_times SpMM, Y = A·X for an (n_cols, m)
-X: on a CUDA tensor it launches the tiled FP32 product of
-``csrc/spmm_band.cu`` (the counterpart of the JAX package's
-``spmm_band``), on a CPU tensor :func:`spmm_band_plain`.
+X: on a CUDA tensor it launches the FP32 product of ``csrc/spmm_band.cu``
+(the counterpart of the JAX package's ``spmm_band``), which multiplies only
+each 16-row warp tile's union of the rows' spans and makes NaN where a
+skipped pad meets a non-finite X value (:func:`band_spmm_spans_plain` is
+that arithmetic in torch); on a CPU tensor :func:`spmm_band_plain`.
 """
 
 from __future__ import annotations
@@ -480,12 +482,14 @@ def pad_x_block(op: BsrBandOperand, x_block: torch.Tensor) -> torch.Tensor:
 def spmm_band(op: BsrBandOperand, x_block: torch.Tensor, *, n_rows: int) -> torch.Tensor:
     """Y = A·X (plus_times only): (n_rows, m) float32 from X (n_cols, m).
 
-    On a CUDA tensor this launches the kernel of ``csrc/spmm_band.cu``; on
-    a CPU tensor it runs :func:`spmm_band_plain`. Other semirings go
-    through ``spmm_tiles`` (see ``ops.spmm``)."""
+    On a CUDA tensor this launches the kernel of ``csrc/spmm_band.cu``,
+    which reads the operand's span table; on a CPU tensor it runs
+    :func:`spmm_band_plain`. Other semirings go through ``spmm_tiles`` (see
+    ``ops.spmm``)."""
     if op.strips.device.type == "cpu":
         return spmm_band_plain(op, x_block, n_rows=n_rows)
-    y = band_spmm_cuda(op.strips, pad_x_block(op, x_block), c0=op.c0, k_win=op.k_win)
+    y = band_spmm_cuda(op.strips, pad_x_block(op, x_block), c0=op.c0, k_win=op.k_win,
+                       spans=op.spans)
     return y[:n_rows]
 
 
@@ -496,37 +500,96 @@ def spmm_band_plain(op: BsrBandOperand, x_block: torch.Tensor, *,
     return y[:n_rows]
 
 
+def _band_groups(strips: torch.Tensor, x2d: torch.Tensor, k_win: int):
+    """(n_groups, rows a group, K·bn, bn, the group chunk of the plain
+    versions) of a band SpMM."""
+    r_rows, bm, kbn = strips.shape
+    bn = kbn // k_win
+    rows = bn // bm * bm
+    step = max(1, bsr.PLAIN_CHUNK_BYTES // max(rows * kbn * x2d.shape[1] * 4, 1))
+    return r_rows * bm // rows, rows, kbn, bn, step
+
+
+def _band_windows(x2d: torch.Tensor, groups: torch.Tensor, c0: int, k_win: int,
+                  bn: int) -> torch.Tensor:
+    """The X windows (len(groups), K·bn, m) of those groups."""
+    xb = x2d.view(-1, bn, x2d.shape[1])
+    base = (groups + c0).clamp(0, max(xb.shape[0] - k_win, 0))
+    win = xb[base[:, None] + torch.arange(k_win, device=x2d.device)]
+    return win.reshape(len(groups), k_win * bn, x2d.shape[1])
+
+
 def band_spmm_plain(strips: torch.Tensor, x2d: torch.Tensor, *, c0: int,
                     k_win: int) -> torch.Tensor:
     """Padded Y (r_rows·bm, m) from strips and a padded (c_blocks·bn, m) X:
     each group's X window is gathered, multiplied with the group's strips by
     broadcast and summed over the window, a chunk of groups at a time so
     that the products stay within bsr.PLAIN_CHUNK_BYTES."""
-    r_rows, bm, kbn = strips.shape
-    k = k_win
-    bn = kbn // k
-    gs = bn // bm
-    n_groups = r_rows // gs
-    m = x2d.shape[1]
-    xb = x2d.view(-1, bn, m)
-    max_base = max(xb.shape[0] - k, 0)
-    step = max(1, bsr.PLAIN_CHUNK_BYTES // max(gs * bm * kbn * m * 4, 1))
-    out = torch.empty((n_groups, gs * bm, m), dtype=torch.float32, device=x2d.device)
-    st_all = strips.view(n_groups, gs * bm, kbn)
+    n_groups, rows, kbn, bn, step = _band_groups(strips, x2d, k_win)
+    out = torch.empty((n_groups, rows, x2d.shape[1]), dtype=torch.float32, device=x2d.device)
+    st_all = strips.view(n_groups, rows, kbn)
     for g0 in range(0, n_groups, step):
         groups = torch.arange(g0, min(g0 + step, n_groups), device=x2d.device)
-        base = (groups + c0).clamp(0, max_base)
-        win = xb[base[:, None] + torch.arange(k, device=x2d.device)].reshape(-1, kbn, m)
+        win = _band_windows(x2d, groups, c0, k_win, bn)
         st = st_all[g0:g0 + step].float()
         out[g0:g0 + step] = (win[:, None] * st[..., None]).sum(dim=2)
-    return out.view(r_rows * bm, m)
+    return out.view(-1, x2d.shape[1])
 
 
-def band_spmm_cuda(strips: torch.Tensor, x2d: torch.Tensor, *, c0: int,
-                   k_win: int) -> torch.Tensor:
-    """Launch the SpMM kernel: padded Y (r_rows·bm, m) float32.
+#: rows of a warp tile of the SpMM kernel, which multiplies only their union
+#: of spans
+SPMM_TILE_ROWS = 16
 
-    Raises on what the kernel does not take and on a refused launch."""
+
+def band_spmm_spans_plain(strips: torch.Tensor, x2d: torch.Tensor, spans: BandSpans, *,
+                          c0: int, k_win: int) -> torch.Tensor:
+    """The SpMM kernel's arithmetic in torch: :func:`band_spmm_plain`'s Y
+    with each 16-row tile of a group summing only the window lanes of the
+    union of its rows' spans (``spans.table``, in chunks of
+    ``spans.chunk_lanes``; a tile with no stored value sums nothing), and
+    NaN in a column where a lane outside that union meets a non-finite X
+    value (0 · ±inf and 0 · NaN are NaN in the full sum). Elsewhere it
+    differs from band_spmm_plain only by the order of the sum and the sign
+    of a zero."""
+    n_groups, rows, kbn, bn, step = _band_groups(strips, x2d, k_win)
+    tiles = rows // SPMM_TILE_ROWS
+    m = x2d.shape[1]
+    table = spans.table.long() * spans.chunk_lanes
+    empty = table[:, 0] >= table[:, 1]
+    lo = torch.where(empty, kbn, table[:, 0]).view(-1, SPMM_TILE_ROWS).amin(dim=1)
+    hi = torch.where(empty, 0, table[:, 1]).view(-1, SPMM_TILE_ROWS).amax(dim=1)
+    lane = torch.arange(kbn, device=x2d.device)
+    kept = ((lane >= lo[:, None]) & (lane < hi[:, None])).view(n_groups, tiles, 1, kbn)
+    out = torch.empty((n_groups, rows, m), dtype=torch.float32, device=x2d.device)
+    st_all = strips.view(n_groups, tiles, SPMM_TILE_ROWS, kbn)
+    for g0 in range(0, n_groups, step):
+        groups = torch.arange(g0, min(g0 + step, n_groups), device=x2d.device)
+        win = _band_windows(x2d, groups, c0, k_win, bn)  # (G, K·bn, m)
+        keep = kept[g0:g0 + step]  # (G, tiles, 1, K·bn)
+        # (G, tiles, 16, K·bn, m)
+        prod = win[:, None, None] * st_all[g0:g0 + step, ..., None].float()
+        y = torch.where(keep[..., None], prod, 0.0).sum(dim=3)
+        skipped_bad = ((~keep[:, :, 0, :, None]) & ~win[:, None].isfinite()).any(dim=2)
+        y = torch.where(skipped_bad[:, :, None], float("nan"), y)
+        out[g0:g0 + step] = y.reshape(len(groups), rows, m)
+    return out.view(-1, m)
+
+
+def band_spmm_cuda(strips: torch.Tensor, x2d: torch.Tensor, *, c0: int, k_win: int,
+                   spans: Optional[BandSpans]) -> torch.Tensor:
+    """Launch the SpMM kernel: padded Y (r_rows·bm, m) float32, computing
+    only each warp tile's union of the rows' spans in ``spans``.
+
+    Raises ValueError on an operand without a span table, with one made for
+    other strips or under a pad other than +0 (another semiring's), and on
+    what the kernel does not take; RuntimeError on a refused launch."""
+    if spans is None:
+        raise ValueError("the operand has no span table: make it with with_spans")
+    if spans.strips is not strips:
+        raise ValueError("the span table was made for other strips: remake it with with_spans")
+    if spans.pad_bits != 0:
+        raise ValueError(f"the span table was made under the pad {spans.pad}, not plus_times' "
+                         f"+0: remake it with with_spans(op, PLUS_TIMES)")
     if strips.device.type != "cuda" or x2d.device != strips.device:
         raise ValueError("band_spmm_cuda needs strips and X on one CUDA device")
     if strips.dim() != 3 or x2d.dim() != 2:
@@ -536,23 +599,24 @@ def band_spmm_cuda(strips: torch.Tensor, x2d: torch.Tensor, *, c0: int,
     if k <= 0 or kbn % k:
         raise ValueError(f"bad window: K·bn={kbn}, K={k}")
     bn = kbn // k
-    if bn % bm or bn % 16 or r_rows % (bn // bm):
-        raise ValueError(f"kernel needs bn % bm == 0, bn % 16 == 0 and whole "
+    if bn % bm or bn % SPMM_TILE_ROWS or r_rows % (bn // bm):
+        raise ValueError(f"kernel needs bn % bm == 0, bn % {SPMM_TILE_ROWS} == 0 and whole "
                          f"groups: bm={bm}, bn={bn}, r_rows={r_rows}")
     if x2d.dtype != torch.float32 or x2d.shape[0] % bn or x2d.shape[0] < k * bn:
         raise ValueError(f"X must be (c_blocks·{bn}, m) float32 with c_blocks ≥ {k}, "
                          f"got {tuple(x2d.shape)} {x2d.dtype}")
     if strips.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"spmm_band takes f32 or bf16 strips, got {strips.dtype}")
-    _check_layout(strips, x2d)
+    _check_layout(strips, x2d, spans.table)
     m = x2d.shape[1]
     out = torch.empty((r_rows * bm, m), dtype=torch.float32, device=strips.device)
     fn = _build.function("spmm_band", "sh_spmm_band",
-                         [ctypes.c_int] + [ctypes.c_void_p] * 3
+                         [ctypes.c_int] + [ctypes.c_void_p] * 4
                          + [ctypes.c_int] * 8 + [ctypes.c_void_p])
     _build.check_launch("spmm_band", fn(
-        strips.device.index, strips.data_ptr(), x2d.data_ptr(), out.data_ptr(),
-        r_rows, bm, kbn, k, c0, x2d.shape[0] // bn, m, _build.STRIP_CODES[strips.dtype],
+        strips.device.index, strips.data_ptr(), x2d.data_ptr(), spans.table.data_ptr(),
+        out.data_ptr(), r_rows, bm, kbn, k, c0, x2d.shape[0] // bn, m,
+        _build.STRIP_CODES[strips.dtype],
         torch.cuda.current_stream(strips.device).cuda_stream,
     ))
     LAUNCHES["spmm_band"] += 1

@@ -24,11 +24,12 @@
 //
 // Two thread maps, chosen by m and the shape (sh_spmm_tiles):
 //
-// - The row map, for m ≤ 64 where m is a multiple of 8, bm of 8 and bn of
-//   4 (the band-routed multi-source solves run at m = 8): a thread takes 8
-//   rows of one block-row and 8 columns, and 8 lanes (m ≤ 8) or 4 (m > 8)
-//   split each such group's slots, every 4th or 8th 4-slot chunk of a tile
-//   to a lane. A lane reads its strip rows straight from device memory, one
+// - The row map, wherever m is a multiple of 8, bm of 8 and bn of 4 and a
+//   group's lanes fit in a block (the band-routed multi-source solves run at
+//   m = 8, the blocked ones at 128): a thread takes 8 rows of one block-row
+//   and 8 columns, and 8 lanes (m ≤ 8), 4 (m ≤ 64) or 2 (above) split each
+//   such group's slots, every 8th, 4th or 2nd 4-slot chunk of a tile to a
+//   lane. A lane reads its strip rows straight from device memory, one
 //   16-byte (f32, int32) or 8-byte (bf16) streaming load per row and chunk,
 //   all 8 issued before their use, and per slot one X row of 8 values
 //   through L1 (two 16-byte loads), so that each X value loaded serves 8
@@ -38,9 +39,14 @@
 //   exact, plus_times in another order than the tile map's. Every thread of
 //   a block owns outputs but a block's remainder. On an H100 80GB HBM3 at
 //   700 W the band at m = 8 takes 0.043 ms in min_plus against the tile
-//   map's 0.17 (scripts/probe_spmm_tiles_cuda.py).
-// - The tile map, for every other shape: one block per (block-row, column
-//   tile of tn ≤ 128 columns); for each slot the (bm, bn) tile, transposed,
+//   map's 0.17 (scripts/probe_spmm_tiles_cuda.py); at m = 128 the blocked
+//   matrix took 0.5050 ms with 2 lanes against the tile map's 1.0550. There
+//   every 8-row group reads its tiles' (bn, m) X blocks anew: 2.15 GB a
+//   call on the blocked matrix (each X block 32 times), through L2.
+// - The tile map, for the shapes the row map refuses (m or bm no multiple
+//   of 8, bn of 4, unaligned strips or X, or m / 8 · SPLIT > 256): one block
+//   per (block-row, column tile of tn ≤ 128 columns); for each slot the
+//   (bm, bn) tile, transposed,
 //   and the tile's X rows, up to kXChunk elements at a time, are staged in
 //   shared memory by all threads at once, so that the loads of X are
 //   coalesced and many are in flight. Each thread then takes one column of
@@ -62,12 +68,9 @@ constexpr int kRows = 4;        // consecutive tile rows each thread ⊕-accumul
 constexpr int kXChunk = 4096;   // X elements staged at a time: 16 KB
 constexpr int kMaxTn = 128;     // columns per block
 // The row map's: a thread to kNarrowRows rows of one block-row and kNarrowC
-// columns, 8 lanes to each such group up to m = 8, 4 above
-// (scripts/probe_spmm_tiles_cuda.py timed these against the other maps).
-// It takes m up to kNarrowMaxM; m > 64 stays on the tile map by the scope
-// of the narrow-m redesign, though the probe timed the row map at m = 128
-// faster than the tile map, until the m = 128 redesign settles that range.
-constexpr int kNarrowMaxM = 64;
+// columns, 8 lanes to each such group up to m = 8, 4 up to m = 64 and 2
+// above (scripts/probe_spmm_tiles_cuda.py and scripts/probe_spmm_wide_cuda.py
+// timed these against the other maps and splits).
 constexpr int kNarrowRows = 8;
 constexpr int kNarrowC = 8;
 
@@ -350,8 +353,8 @@ extern "C" {
 // dp over the padded rows: out (r_blocks·bm, m), row-major, in the carrier
 // type (float32, or int32 for the int semirings and the or_and carrier). x is
 // X padded to (c_blocks·bn, m), row-major, in the same type; cols the int32
-// (r_blocks, K) block-columns. m ≤ kNarrowMaxM takes the row map where the
-// shape allows it (rows_launch), every other shape the tile map. Launches on
+// (r_blocks, K) block-columns. The row map takes every shape it can
+// (rows_launch), the tile map the rest. Launches on
 // `stream` and returns the launch's cudaError_t (0 on success); it does not
 // synchronise.
 int sh_spmm_tiles(int device, const void* strips, const void* cols, const void* x,
@@ -364,8 +367,9 @@ int sh_spmm_tiles(int device, const void* strips, const void* cols, const void* 
   if (rc != cudaSuccess || done) return rc;
   rc = cudaSetDevice(device);
   if (rc != cudaSuccess) return rc;
-  const bool rows = m <= kNarrowMaxM && (m <= 8 ? run_rows<8>(a, semiring, strip_dtype, &rc)
-                                                  : run_rows<4>(a, semiring, strip_dtype, &rc));
+  const bool rows = m <= 8    ? run_rows<8>(a, semiring, strip_dtype, &rc)
+                    : m <= 64 ? run_rows<4>(a, semiring, strip_dtype, &rc)
+                              : run_rows<2>(a, semiring, strip_dtype, &rc);
   if (!rows) {
     TilesLaunch tiles;
     rc = tiles_launch(a, &tiles);

@@ -9,8 +9,8 @@ contiguous along m.
 
 On a CUDA tensor :func:`spmm_bsr_ell` launches the hand-written kernel of
 ``csrc/spmm_tiles.cu`` (all seven semirings, or_and on its int32 carrier;
-a thread to 8 rows × 8 columns at narrow m, a block to a block-row's
-column tile otherwise);
+a thread to 8 rows × 8 columns wherever m and bm are multiples of 8, a
+block to a block-row's column tile otherwise);
 on a CPU tensor it runs :func:`spmm_bsr_ell_plain`, the plain torch version
 that the tests and ``chip_smoke.py`` hold the kernel against. The JAX
 package's K-chunk and slab padding are rules of the TPU's grid and have no

@@ -1,7 +1,8 @@
 """Kernel tests that need an NVIDIA GPU and nvcc (marker ``cuda``): the
 bsr_band kernel's staged and streamed paths, the strip kernel of bsr_fused
 and bsr_ell, the gen-1 tile kernel of bsr_pallas, the sell2 panel kernel
-the two SpMM kernels (spmm_band, spmm_tiles) and the sell fused depth-0
+the two SpMM kernels (spmm_band, also on X with ±inf and NaN; spmm_tiles
+at m up to 256 through both maps) and the sell fused depth-0
 and level kernels, against their plain versions on the same CUDA tensors,
 spmv, spmm and multi_sssp launching each kernel, and the sell2 plan made on
 the card against the one made on the CPU. They
@@ -366,20 +367,85 @@ def test_spmm_tiles_kernel_matches_plain(name, value_dtype, cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name,value_dtype", CASES)
+def test_spmm_tiles_wide_m_matches_plain(name, value_dtype, cuda):
+    """m above 64: the row map with 2 lanes a group wherever m and bm are
+    multiples of 8 (72, 128, 136 and 256, two blocks of 128 columns), the
+    tile map on the other shapes; bit for bit but plus_times, the same bits
+    twice."""
+    sr = get_semiring(name)
+    for n_cols, op in _spmm_tile_operands(sr, value_dtype, cuda):
+        bn = op.tiles.shape[2] // op.tile_cols.shape[1]
+        for m in (72, 128, 136, 256):
+            x2d = spmm_tiles.pad_x_block(_x_block(sr, n_cols, m, seed=m).to(cuda), bn, sr)
+            got = spmm_tiles.spmm_tiles_cuda(op.tiles, op.tile_cols, x2d, sr)
+            again = spmm_tiles.spmm_tiles_cuda(op.tiles, op.tile_cols, x2d, sr)
+            torch.cuda.synchronize()
+            ref = spmm_tiles.spmm_tiles_plain(op.tiles, op.tile_cols, x2d, sr)
+            bound = None
+            if name == "plus_times":
+                bound = spmm_tiles.spmm_tiles_plain(op.tiles.abs(), op.tile_cols, x2d.abs(),
+                                                    PLUS_TIMES)
+            _assert_kernel_matches(name, got, ref, bound)
+            assert torch.equal(got, again), f"m={m}: two runs differ"
+
+
+#: the band SpMM's matrices: K = 3 at bn = 128, a window wider than the
+#: matrix, K = 5 and 3,000 rows of a wide band
+SPMM_BANDS = ((1024, 7, 1), (600, 4, 3), (96, 40, 53), (3000, 300, 2))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("value_dtype", ["float32", "bfloat16"])
 def test_spmm_band_kernel_matches_plain(value_dtype, cuda):
-    for coo in (banded_coo(1024, 7, seed=1), banded_coo(600, 4, seed=3),
-                banded_coo(96, 40, seed=53), banded_coo(3000, 300, seed=2)):
+    for n, width, seed in SPMM_BANDS:
+        coo = banded_coo(n, width, seed=seed)
         op = bsr_band.build_bsr_band(coo, PLUS_TIMES, value_dtype=value_dtype, device=cuda)
-        for m in (1, 40, 200):
+        for m in (1, 40, 128, 200):
             x2d = bsr_band.pad_x_block(op, _x_block(PLUS_TIMES, coo.shape[1], m, seed=m).to(cuda))
-            got = bsr_band.band_spmm_cuda(op.strips, x2d, c0=op.c0, k_win=op.k_win)
-            again = bsr_band.band_spmm_cuda(op.strips, x2d, c0=op.c0, k_win=op.k_win)
+            args = dict(c0=op.c0, k_win=op.k_win, spans=op.spans)
+            got = bsr_band.band_spmm_cuda(op.strips, x2d, **args)
+            again = bsr_band.band_spmm_cuda(op.strips, x2d, **args)
             torch.cuda.synchronize()
             ref = bsr_band.band_spmm_plain(op.strips, x2d, c0=op.c0, k_win=op.k_win)
             bound = bsr_band.band_spmm_plain(op.strips.abs(), x2d, c0=op.c0, k_win=op.k_win)
             _assert_kernel_matches("plus_times", got, ref, bound)
             assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("value_dtype", ["float32", "bfloat16"])
+def test_spmm_band_kernel_nonfinite_x(value_dtype, cuda):
+    """X with +inf, −inf and NaN in 30 seeded places of its first half of
+    columns (and X negative too):
+    NaN exactly where the plain version's is, which multiplies every slot
+    (a pad the kernel skips meets a non-finite value: 0·inf), ±inf equal,
+    the outputs whose window holds no non-finite value within the
+    tolerance, and the same bits, NaNs included, on a second call."""
+    rng = np.random.default_rng(71)
+    for n, width, seed in SPMM_BANDS:
+        coo = banded_coo(n, width, seed=seed)
+        op = bsr_band.build_bsr_band(coo, PLUS_TIMES, value_dtype=value_dtype, device=cuda)
+        for m in (3, 128, 136):
+            x = rng.uniform(-1.0, 1.0, (n, m)).astype(np.float32)
+            # in the first half of the columns: the others stay finite
+            x[rng.integers(0, n, 30), rng.integers(0, (m + 1) // 2, 30)] = [
+                np.inf, -np.inf, np.nan] * 10
+            x2d = bsr_band.pad_x_block(op, torch.from_numpy(x).to(cuda))
+            args = dict(c0=op.c0, k_win=op.k_win, spans=op.spans)
+            got = bsr_band.band_spmm_cuda(op.strips, x2d, **args)
+            again = bsr_band.band_spmm_cuda(op.strips, x2d, **args)
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+            ref = bsr_band.band_spmm_plain(op.strips, x2d, c0=op.c0, k_win=op.k_win)
+            bound = bsr_band.band_spmm_plain(op.strips.abs(), x2d.abs(), c0=op.c0,
+                                             k_win=op.k_win)
+            assert torch.equal(got.isnan(), ref.isnan()), f"n={n} m={m}: NaN differs"
+            inf = ref.isinf()
+            assert torch.equal(got[inf], ref[inf])
+            fin = bound.isfinite()
+            assert bool(fin.any()) and bool(ref.isnan().any())
+            _assert_kernel_matches("plus_times", got[fin], ref[fin], bound[fin])
 
 
 @pytest.mark.cuda

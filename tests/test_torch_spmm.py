@@ -29,8 +29,9 @@ from sparseharness_tpu_torch.ops import (
     Geometry, build_operand, fold_dp, spmm, spmm_band, spmm_band_plain, spmm_bsr_ell,
     spmm_bsr_ell_plain,
 )
+from sparseharness_tpu_torch.ops import bsr_band as tband
 from sparseharness_tpu_torch.ops import spmm_tiles as ttiles
-from sparseharness_tpu_torch.semiring import REGISTRY, PLUS_TIMES, get_semiring
+from sparseharness_tpu_torch.semiring import MIN_PLUS, REGISTRY, PLUS_TIMES, get_semiring
 from sparseharness_tpu_torch.semiring.core import INT_MAX, INT_MIN, _carrier
 
 PT_DELTA = 1e-5
@@ -118,6 +119,111 @@ def test_spmm_band_plain_equals_jax_kernel(m):
         got.numpy(), spmm_band_plain(top, torch.from_numpy(X), n_rows=400).numpy())
     ref = np.asarray(jax_spmm_band(jop, jnp.asarray(X), n_rows=400))
     _assert_match(PLUS_TIMES, got.numpy(), ref, coo_t, X)
+
+
+# ------------------------------------- the band kernel's span arithmetic
+
+#: (n, band, seed, strip type, m): a band at K = 3; a window wider than the
+#: matrix (K = 1, 128 lanes over 96 columns); bf16 strips
+SPAN_CASES = [(400, 30, 7, "float32", 5), (96, 40, 53, "float32", 3),
+              (1024, 7, 1, "bfloat16", 6)]
+
+
+def _skipped_x_rows(op, n_cols):
+    """The X rows (below n_cols) that some 16-row tile's window holds
+    outside the tile's union of spans: there only pads of the tile's rows
+    meet X."""
+    r_rows, bm, kbn = op.strips.shape
+    bn = kbn // op.k_win
+    table = op.spans.table.long() * op.spans.chunk_lanes
+    empty = table[:, 0] >= table[:, 1]
+    lo = torch.where(empty, kbn, table[:, 0]).view(-1, 16).amin(dim=1)
+    hi = torch.where(empty, 0, table[:, 1]).view(-1, 16).amax(dim=1)
+    group = torch.arange(lo.numel()) * 16 // bn
+    c_blocks = max(-(-n_cols // bn), op.k_win)
+    base = (group + op.c0).clamp(0, c_blocks - op.k_win) * bn
+    lane = torch.arange(kbn)
+    outside = (lane < lo[:, None]) | (lane >= hi[:, None])
+    rows = (base[:, None] + lane)[outside]
+    return torch.unique(rows[rows < n_cols]).numpy()
+
+
+def _band_x(n_cols, m, seed, skipped=None):
+    """X uniform in (−1, 1); with ``skipped`` (X rows), +inf, −inf and NaN in
+    six of those rows."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-1.0, 1.0, (n_cols, m)).astype(np.float32)
+    if skipped is not None:
+        rows = rng.choice(skipped, 6, replace=False)
+        X[rows, rng.integers(0, m, 6)] = [np.inf, -np.inf, np.nan] * 2
+    return X
+
+
+def _assert_nonfinite_match(got, ref, bound):
+    """NaN where ref has NaN, ±inf equal, and within PT_DELTA · max(1,
+    |ref|, Σ|a·x|) wherever Σ|a·x| (``bound``) is finite."""
+    got, ref, bound = (np.asarray(a, np.float64) for a in (got, ref, bound))
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    inf = np.isinf(ref)
+    np.testing.assert_array_equal(got[inf], ref[inf])
+    fin = np.isfinite(bound)
+    scale = np.maximum(np.maximum(np.abs(ref[fin]), bound[fin]), 1.0)
+    assert (np.abs(got[fin] - ref[fin]) <= PT_DELTA * scale).all()
+
+
+@pytest.mark.parametrize("nonfinite", [False, True])
+@pytest.mark.parametrize("n,band,seed,value_dtype,m", SPAN_CASES)
+def test_band_spmm_spans_plain_matches_plain_and_jax(n, band, seed, value_dtype, m,
+                                                      nonfinite):
+    """band_spmm_spans_plain (each 16-row tile sums only its union of spans,
+    NaN where a skipped pad meets a non-finite X value) against
+    band_spmm_plain and JAX's spmm_band in interpret mode (every slot):
+    with non-finite X placed in rows some tile skips, NaN and ±inf in the
+    same places, the rest within the tolerance."""
+    top = build_operand(tf.banded_coo(n, band, seed=seed), PLUS_TIMES, "bsr_band",
+                        Geometry(8, 128, value_dtype), device="cpu")
+    jop = jops.build_operand(jf.banded_coo(n, band, seed=seed), jsr.PLUS_TIMES, "bsr_band",
+                             jops.Geometry(8, 128, value_dtype))
+    skipped = _skipped_x_rows(top, n)
+    assert len(skipped) >= 6  # the spans leave pads that the kernel skips
+    X = _band_x(n, m, seed + 1, skipped if nonfinite else None)
+    x2d = tband.pad_x_block(top, torch.from_numpy(X))
+    args = dict(c0=top.c0, k_win=top.k_win)
+    got = tband.band_spmm_spans_plain(top.strips, x2d, top.spans, **args)[:n]
+    ref = tband.band_spmm_plain(top.strips, x2d, **args)[:n]
+    bound = tband.band_spmm_plain(top.strips.abs(), x2d.abs(), **args)[:n]
+    _assert_nonfinite_match(got.numpy(), ref.numpy(), bound.numpy())
+    jax_ref = np.asarray(jax_spmm_band(jop, jnp.asarray(X), n_rows=n))
+    _assert_nonfinite_match(got.numpy(), jax_ref, bound.numpy())
+    if nonfinite:
+        assert np.isnan(ref.numpy()).any()
+    else:
+        assert np.isfinite(got.numpy()).all()
+
+
+@pytest.mark.parametrize("value_dtype", ["float32", "bfloat16"])
+def test_band_spmm_cuda_refuses_operand_spans(value_dtype):
+    """band_spmm_cuda refuses, before it looks for the card, an operand
+    without a span table, a table made for other strips, and one made under
+    another semiring's pad (min_plus: FLT_MAX, in bf16 +inf); an operand
+    with its own plus_times table passes those checks and stops at the
+    device check here."""
+    op = build_operand(tf.banded_coo(300, 9, seed=3), PLUS_TIMES, "bsr_band",
+                       Geometry(8, 128, value_dtype), device="cpu")
+    x2d = tband.pad_x_block(op, torch.ones(300, 4))
+    args = dict(c0=op.c0, k_win=op.k_win)
+    with pytest.raises(ValueError, match="no span table"):
+        tband.band_spmm_cuda(op.strips, x2d, spans=None, **args)
+    with pytest.raises(ValueError, match="other strips"):
+        tband.band_spmm_cuda(op.strips.clone(), x2d, spans=op.spans, **args)
+    with pytest.raises(ValueError, match="pad"):
+        tband.band_spmm_cuda(op.strips, x2d, spans=tband.band_spans(op.strips, MIN_PLUS),
+                             **args)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tband.band_spmm_cuda(op.strips, x2d, spans=op.spans, **args)
+    with pytest.raises(ValueError, match="CUDA device"):
+        tband.band_spmm_cuda(op.strips, x2d, spans=tband.with_spans(op, PLUS_TIMES).spans,
+                             **args)
 
 
 # ------------------------------------------------------ the tile kernel
@@ -272,9 +378,9 @@ def test_spmm_bsr_ell_plain_on_band_operand_equals_jax_kernel(name, n):
 IDENTITY = {"plus_times": 0.0, "min_plus": float("inf"), "or_and": INT_MIN,
             "max_min": float("-inf"), "max_times": float("-inf"), "max_right": INT_MIN,
             "min_right": INT_MAX}
-#: lanes a group of the row map: the kernel's 8 (m ≤ 8) and 4 (m > 8), and
-#: 2, which scripts/probe_spmm_tiles_cuda.py also times
-ROW_SPLITS = [2, 4, 8]
+#: lanes a group of the row map: the kernel's 8 (m ≤ 8), 4 (m ≤ 64) and 2
+#: (above), and 1, which scripts/probe_spmm_wide_cuda.py also times
+ROW_SPLITS = [1, 2, 4, 8]
 #: rows and columns a thread of the row map (kNarrowRows, kNarrowC)
 ROW_TILE = 8
 
@@ -326,7 +432,7 @@ def _row_map_model(tiles, tile_cols, x2d, sr, split):
 
 
 @pytest.mark.parametrize("split", ROW_SPLITS)
-@pytest.mark.parametrize("m", [8, 16, 24, 32, 40, 48, 56, 64])
+@pytest.mark.parametrize("m", [8, 16, 24, 32, 40, 48, 56, 64, 72, 128, 136, 256])
 @pytest.mark.parametrize("bm", [8, 16, 24, 72])
 def test_row_map_writes_each_output_once(bm, m, split):
     """Every output of the padded dp has exactly one writer (lane 0 of its
@@ -360,8 +466,8 @@ def test_row_map_model_matches_plain(name, value_dtype, split):
     """The row map's order of ⊕ and fold gives the plain version's dp: bit
     for bit for the six min/max/or semirings, plus_times within the
     tolerance, f32 and bf16 strips; on the band's explicit columns (K = 3,
-    bn = 128) at m = 8 and on 16 × 64 tiles at m = 16 with columns outside
-    X's blocks."""
+    bn = 128) at m = 8 and on 16 × 64 tiles at m = 16 and 136 with columns
+    outside X's blocks."""
     sr = get_semiring(name)
     band = ttiles.ell_operand_from_band(
         build_operand(tf.banded_coo(300, 63, seed=1), sr, "bsr_band",
@@ -371,7 +477,8 @@ def test_row_map_model_matches_plain(name, value_dtype, split):
     cols = ell.tile_cols.clone()
     cols[::2, 0] = -3
     cols[1::2, -1] = 99
-    for op, n_cols, m in ((band, 300, 8), (ell._replace(tile_cols=cols), 300, 16)):
+    ell = ell._replace(tile_cols=cols)
+    for op, n_cols, m in ((band, 300, 8), (ell, 300, 16), (ell, 300, 136)):
         bn = op.tiles.shape[2] // op.tile_cols.shape[1]
         X = torch.from_numpy(_x_block(sr, n_cols, m, seed=17))
         x2d = ttiles.pad_x_block(X, bn, sr)
