@@ -11,7 +11,8 @@ script exits non-zero, and without a card it exits 1 before printing any
 result. Phases:
 
 1. device and build: the card, its power limit, torch and CUDA versions,
-   and the nvcc build of every kernel source;
+   and the nvcc build of every kernel source, with the g++ build of the
+   native host library (formats/csrc/fast_mtx.cpp) beside it;
 2. kernel vs plain: both paths of the bsr_band kernel (x staged in shared
    memory, x streamed; each reads only the rows' spans of the strips)
    against the plain torch version on the same CUDA tensors, for all seven
@@ -49,7 +50,9 @@ result. Phases:
    certified;
 8. the variant gate of bench.py: every registered variant gold-checked on
    random_coo(1138, 1138, 4054, seed=0), bsr_band and dia on
-   banded_coo(1138, 8, seed=0);
+   banded_coo(1138, 8, seed=0), each operand on the card first passing
+   verify_operand_initialized (every slot an entry or padding, every index
+   in bounds);
 9. kernel timing at the blocked shape: each blocked kernel, its plain
    version, torch.mv on a CSR tensor of the same matrix, and the bound;
 10. the sell2 kernel against its plain version: all seven semirings and
@@ -72,7 +75,8 @@ result. Phases:
    with the launches it recorded), its plain
    version, torch.mv on a CSR tensor of the same matrix, the bound, the
    bytes of the plan and of a call, the panel stage's work items (chunks
-   and runs per block, max and median), and the seconds of each build;
+   and runs per block, max and median), and the seconds of each build
+   (native, with its seconds by stage);
 13. the SpMM kernels against their plain versions: spmm_tiles for all
    seven semirings and strip types over bsr_ell and bsr_fused strips of
    random_coo(300, 257, 2500, seed=3) and random_coo(64, 4096, 6000,
@@ -95,8 +99,8 @@ result. Phases:
 16. the other multi-source routes: bsr_band operands through spmm_tiles on
    banded_coo(1 << 16, 63, seed=1) with 8 roots, the column map of sell2
    on the ragged matrix (8 sell2 launches a step), and a shuffled band
-   solved with reorder="rcm", which must resolve bsr_band and equal the
-   unshuffled solve;
+   solved with reorder="rcm" (native RCM), which must resolve bsr_band and
+   equal the unshuffled solve;
 17. SpMM kernel times at the full-width points: the median of five 20-call
    windows, the plain version, torch.sparse.mm on a CSR tensor (cuSPARSE,
    f32 plus_times only) and the bound (on the band, each row's span of
@@ -124,10 +128,19 @@ result. Phases:
    ``python -m sparseharness_tpu_torch.cli <app>`` runs them (spmv and sssp
    with -k sell on the band; the sweep, a stepped sssp, bfs from three
    roots, pr, scc --full, eigenvector, cc, widest_path and just_parser -k
-   sell on the small matrix), every return code 0, every JSONL row parsed
+   sell on the small matrix, natively and with --no-native; the other
+   commands parse natively), every return code 0, every JSONL row parsed
    and none gold-checked incorrect, the band's spmv and sssp rows and the
    sweep's sell row correct, and one spmv -k sell as a subprocess, correct;
-22. sell kernel times at the 1 << 18 band: the whole dp, the fused
+22. the native host path against the NumPy one at full size: the sell2
+   build of the ragged matrix both ways, every array identical, with both
+   times, the native build's seconds by stage and its count of NumPy-body
+   slabs, then the sell2 kernel on the native operand against its plain
+   version and the gold; RCM of the shuffled 1 << 16 band both ways, the
+   same permutation; the parse of phase 21's 8.3 M-entry band.mtx both
+   ways, the same indices and values within rtol 1e-6; each with both
+   times (the kernel launches here are outside every counted run);
+23. sell kernel times at the 1 << 18 band: the whole dp, the fused
    depth-0 launch alone and the later levels alone (median of five 20-call
    windows of CUDA events), the plain versions, torch.mv on a CSR tensor of
    the same matrix, the bounds and the bytes each moves by its design; the
@@ -141,12 +154,14 @@ Then the kernels line, the nvidia-smi line and, last, the ok line.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -727,12 +742,13 @@ def blocked_fixpoints(torch, coo, out) -> None:
 
 def variant_gate(torch) -> dict:
     """bench.py's gate: every registered variant on its home structure,
-    gold-checked CORRECT on the card."""
+    its operand on the card passing verify_operand_initialized, gold-checked
+    CORRECT on the card."""
     from sparseharness_tpu_torch.algorithms import make_spmv_problem
     from sparseharness_tpu_torch.formats import banded_coo, random_coo
     from sparseharness_tpu_torch.gold import Correctness, spmv_gold
     from sparseharness_tpu_torch.harness import BenchmarkConfig, benchmark_spmv
-    from sparseharness_tpu_torch.ops import VARIANTS
+    from sparseharness_tpu_torch.ops import VARIANTS, verify_operand_initialized
     from sparseharness_tpu_torch.semiring import PLUS_TIMES
 
     small = random_coo(1138, 1138, 4054, seed=0)
@@ -741,11 +757,14 @@ def variant_gate(torch) -> dict:
     gate += [("bsr_band", band), ("dia", band)]
     for variant, m in gate:
         prob = make_spmv_problem(m, variant=variant, seed=1)
+        # every slot of the card's operand is an entry or padding (raises)
+        verify_operand_initialized(m, PLUS_TIMES, prob.operand, variant)
         gold = spmv_gold(m, prob.x0.cpu().numpy(), prob.y.cpu().numpy(), PLUS_TIMES)
         res = benchmark_spmv(prob, gold=gold, config=BenchmarkConfig(trials=1))
         if res.correctness is not Correctness.CORRECT:
             raise AssertionError(f"gate: {variant} is {res.correctness}")
-    return {"variants": [v for v, _ in gate], "correct": len(gate)}
+    return {"variants": [v for v, _ in gate], "correct": len(gate),
+            "init_checked": len(gate)}
 
 
 def csr_of(torch, coo):
@@ -1073,7 +1092,8 @@ def ragged_kernel_times(torch, coo) -> dict:
     res = {}
     for vd in ("float32", "bfloat16"):
         t0 = time.perf_counter()
-        op = sell2.build_sell2(coo, PLUS_TIMES, value_dtype=vd, device="cuda")
+        rec = sell2.EncodeRecord()
+        op = sell2.build_sell2(coo, PLUS_TIMES, value_dtype=vd, device="cuda", record=rec)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         stream = [t for s in op.slabs if s is not None for t in s.values()]
@@ -1084,7 +1104,8 @@ def ragged_kernel_times(torch, coo) -> dict:
         entry = bound(tensor_bytes(*stream, *extra) + x.numel() * 4 + out_rows * 4,
                       2 * n_slots, bw)
         entry.update(
-            build_seconds=build_s, panels=plan.n_panels, layouts=len(op.layouts),
+            build_seconds=build_s, build_native=rec.native, build_stages=rec.seconds,
+            numpy_body_slabs=rec.numpy_slabs, panels=plan.n_panels, layouts=len(op.layouts),
             runs=plan.n_runs, slots=n_slots, pieces=0 if op.piece_owner is None
             else int(op.piece_owner.numel()),
             virtual_chunks=0 if op.virt_blocks is None else int(op.virt_blocks.shape[0]),
@@ -1269,83 +1290,201 @@ def sell_fixpoints(torch, band, out) -> None:
         raise AssertionError("sell bfs certificate failed")
 
 
-def cli_path(torch, band, small, out) -> None:
+def cli_path(torch, band, small, d, out) -> None:
     """The nine CLI commands in process, as python -m
     sparseharness_tpu_torch.cli runs them, on .mtx files written by the
-    port's write_mtx; then spmv -k sell as a subprocess. Every return code
+    port's write_mtx into directory ``d`` (band.mtx stays for the
+    native_host phase); then spmv -k sell as a subprocess. Every return code
     must be 0, every JSONL row must parse, no row may be gold-checked
     incorrect, and the rows of spmv -k sell and sssp -k sell on the band,
     the sweep's sell row on the small matrix and the subprocess must read
-    correct."""
+    correct. The commands parse the files natively."""
     import contextlib
     import io
     import os
-    import tempfile
 
     from sparseharness_tpu_torch.cli import main as cli
     from sparseharness_tpu_torch.formats import write_mtx
 
-    with tempfile.TemporaryDirectory() as d:
-        band_path, small_path = os.path.join(d, "band.mtx"), os.path.join(d, "small.mtx")
-        jsonl, sql = os.path.join(d, "out.jsonl"), os.path.join(d, "out.sql")
+    band_path, small_path = os.path.join(d, "band.mtx"), os.path.join(d, "small.mtx")
+    jsonl, sql = os.path.join(d, "out.jsonl"), os.path.join(d, "out.sql")
+    t0 = time.perf_counter()
+    write_mtx(band_path, band)
+    write_mtx(small_path, small)
+    out.append({"write_mtx_seconds": time.perf_counter() - t0})
+    sink = ["--jsonl", jsonl, "--sql", sql]
+    runs = [("spmv", ["-m", band_path, "-k", "sell", "-n", "3"] + sink),
+            ("sssp", ["-m", band_path, "-k", "sell", "-n", "2"] + sink),
+            ("spmv", ["-m", small_path, "--sweep", "-n", "2"] + sink),
+            ("sssp", ["-m", small_path, "--stepped", "-k", "auto", "-n", "2"] + sink),
+            ("bfs", ["-m", small_path, "--roots", "0,5,9", "-n", "2"] + sink),
+            ("pr", ["-m", small_path, "-n", "2"] + sink),
+            ("scc", ["-m", small_path, "--full", "-n", "2"] + sink),
+            ("eigenvector", ["-m", small_path, "-n", "2"] + sink),
+            ("cc", ["-m", small_path, "-n", "2"] + sink),
+            ("widest_path", ["-m", small_path, "-k", "auto", "-n", "2"] + sink),
+            ("just_parser", ["-m", small_path, "-k", "sell", "-n", "2"]),
+            ("just_parser", ["-m", small_path, "-k", "sell", "-n", "2", "--no-native"])]
+    for app, argv in runs:
+        buf = io.StringIO()
         t0 = time.perf_counter()
-        write_mtx(band_path, band)
-        write_mtx(small_path, small)
-        out.append({"write_mtx_seconds": time.perf_counter() - t0})
-        sink = ["--jsonl", jsonl, "--sql", sql]
-        runs = [("spmv", ["-m", band_path, "-k", "sell", "-n", "3"] + sink),
-                ("sssp", ["-m", band_path, "-k", "sell", "-n", "2"] + sink),
-                ("spmv", ["-m", small_path, "--sweep", "-n", "2"] + sink),
-                ("sssp", ["-m", small_path, "--stepped", "-k", "auto", "-n", "2"] + sink),
-                ("bfs", ["-m", small_path, "--roots", "0,5,9", "-n", "2"] + sink),
-                ("pr", ["-m", small_path, "-n", "2"] + sink),
-                ("scc", ["-m", small_path, "--full", "-n", "2"] + sink),
-                ("eigenvector", ["-m", small_path, "-n", "2"] + sink),
-                ("cc", ["-m", small_path, "-n", "2"] + sink),
-                ("widest_path", ["-m", small_path, "-k", "auto", "-n", "2"] + sink),
-                ("just_parser", ["-m", small_path, "-k", "sell", "-n", "2"])]
-        for app, argv in runs:
-            buf = io.StringIO()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(buf):
-                rc = cli.COMMANDS[app](argv)
-            torch.cuda.synchronize()
-            lines = buf.getvalue().strip().splitlines()
-            out.append({"app": app, "args": " ".join(os.path.basename(a) for a in argv
-                                                     if not a.endswith((".jsonl", ".sql"))),
-                        "rc": rc, "seconds": time.perf_counter() - t0,
-                        "last_line": lines[-1] if lines else ""})
-            if rc != 0:
-                raise AssertionError(f"cli {app} {argv}: rc {rc}\n{buf.getvalue()}")
-        with open(jsonl) as f:
-            rows = [json.loads(line) for line in f]
-        with open(sql) as f:
-            n_sql = sum(1 for line in f if line.startswith("INSERT INTO"))
-        if len(rows) != n_sql or not rows:
-            raise AssertionError(f"{len(rows)} JSONL rows against {n_sql} SQL rows")
-        wrong = [r for r in rows if r["correctness"] in ("incorrect", "bad_length")]
-        if wrong:
-            raise AssertionError(f"cli rows gold-checked wrong: {wrong}")
-        for label, path, kernel in (("spmv -k sell on the band", band_path, "sell"),
-                                    ("sssp -k sell on the band", band_path, "sssp:sell"),
-                                    ("the sweep's sell point", small_path, "sell")):
-            mine = [r["correctness"] for r in rows
-                    if r["matrix"] == path and r["kernel"] == kernel]
-            if not mine or set(mine) != {"correct"}:
-                raise AssertionError(f"cli {label}: correctness {mine}")
+        with contextlib.redirect_stdout(buf):
+            rc = cli.COMMANDS[app](argv)
+        torch.cuda.synchronize()
+        lines = buf.getvalue().strip().splitlines()
+        out.append({"app": app, "args": " ".join(os.path.basename(a) for a in argv
+                                                 if not a.endswith((".jsonl", ".sql"))),
+                    "rc": rc, "seconds": time.perf_counter() - t0,
+                    "last_line": lines[-1] if lines else ""})
+        if rc != 0:
+            raise AssertionError(f"cli {app} {argv}: rc {rc}\n{buf.getvalue()}")
+    with open(jsonl) as f:
+        rows = [json.loads(line) for line in f]
+    with open(sql) as f:
+        n_sql = sum(1 for line in f if line.startswith("INSERT INTO"))
+    if len(rows) != n_sql or not rows:
+        raise AssertionError(f"{len(rows)} JSONL rows against {n_sql} SQL rows")
+    wrong = [r for r in rows if r["correctness"] in ("incorrect", "bad_length")]
+    if wrong:
+        raise AssertionError(f"cli rows gold-checked wrong: {wrong}")
+    for label, path, kernel in (("spmv -k sell on the band", band_path, "sell"),
+                                ("sssp -k sell on the band", band_path, "sssp:sell"),
+                                ("the sweep's sell point", small_path, "sell")):
+        mine = [r["correctness"] for r in rows
+                if r["matrix"] == path and r["kernel"] == kernel]
+        if not mine or set(mine) != {"correct"}:
+            raise AssertionError(f"cli {label}: correctness {mine}")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "sparseharness_tpu_torch.cli", "spmv", "-m", small_path,
+         "-k", "sell", "-n", "2"], cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=600)
+    out.append({"subprocess": "python -m sparseharness_tpu_torch.cli spmv -k sell -n 2",
+                "rc": proc.returncode, "seconds": time.perf_counter() - t0,
+                "last_line": (proc.stdout.strip().splitlines() or [""])[-1]})
+    if proc.returncode != 0 or not out[-1]["last_line"].endswith(", correct"):
+        raise AssertionError(f"cli subprocess: rc {proc.returncode}, "
+                             f"{out[-1]['last_line']!r}\n{proc.stderr}")
+    out.append({"jsonl_rows": len(rows), "sql_rows": n_sql,
+                "kernels": sorted({r["kernel"] for r in rows})})
+
+
+def _with_native(flag: str, fn):
+    """fn() with SPARSEHARNESS_TPU_NATIVE set to flag, and its seconds."""
+    before = os.environ.get("SPARSEHARNESS_TPU_NATIVE")
+    os.environ["SPARSEHARNESS_TPU_NATIVE"] = flag
+    try:
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "sparseharness_tpu_torch.cli", "spmv", "-m", small_path,
-             "-k", "sell", "-n", "2"], cwd=os.path.dirname(os.path.abspath(__file__)),
-            capture_output=True, text=True, timeout=600)
-        out.append({"subprocess": "python -m sparseharness_tpu_torch.cli spmv -k sell -n 2",
-                    "rc": proc.returncode, "seconds": time.perf_counter() - t0,
-                    "last_line": (proc.stdout.strip().splitlines() or [""])[-1]})
-        if proc.returncode != 0 or not out[-1]["last_line"].endswith(", correct"):
-            raise AssertionError(f"cli subprocess: rc {proc.returncode}, "
-                                 f"{out[-1]['last_line']!r}\n{proc.stderr}")
-        out.append({"jsonl_rows": len(rows), "sql_rows": n_sql,
-                    "kernels": sorted({r["kernel"] for r in rows})})
+        res = fn()
+        return res, time.perf_counter() - t0
+    finally:
+        if before is None:
+            del os.environ["SPARSEHARNESS_TPU_NATIVE"]
+        else:
+            os.environ["SPARSEHARNESS_TPU_NATIVE"] = before
+
+
+def same_sell2(torch, a, b) -> int:
+    """Fails unless two sell2 operands hold the same arrays, plan included
+    (but the panels' addresses); returns the tensors compared."""
+    if a.layouts != b.layouts or (a.n_chunks, a.base_pad) != (b.n_chunks, b.base_pad):
+        raise AssertionError("sell2 native vs NumPy: layouts differ")
+    pairs = [(f"slab {i} {k}", sa[k], sb[k]) for i, (sa, sb) in
+             enumerate(zip(a.slabs, b.slabs, strict=True)) if sa is not None for k in sa]
+    pairs += [(f, getattr(a, f), getattr(b, f)) for f in ("piece_owner", "virt_blocks")]
+    pairs += [(f"plan.{f.name}", getattr(a.plan, f.name), getattr(b.plan, f.name))
+              for f in dataclasses.fields(a.plan) if f.name != "panel_ptrs"
+              and isinstance(getattr(a.plan, f.name), torch.Tensor)]
+    for label, x, y in pairs:
+        if (x is None) != (y is None) or (x is not None and not (
+                x.dtype == y.dtype and torch.equal(_bits(torch, x), _bits(torch, y)))):
+            raise AssertionError(f"sell2 native vs NumPy: {label} differs")
+    return len(pairs)
+
+
+def _bits(torch, t):
+    """A float tensor's bit patterns, so that equality is bit for bit."""
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16)
+    return t
+
+
+def native_host(torch, rcoo, band, band_path) -> dict:
+    """The native host path against the NumPy one on the card's host, at
+    full size: the sell2 build of the ragged bench matrix both ways (every
+    array identical; both times, the native build's seconds by stage and
+    its count of NumPy-body slabs), then the sell2 kernel on the native
+    operand against its plain version and the gold; RCM of the shuffled
+    1 << 16 band both ways (the same permutation); the parse of the CLI's
+    8.3 M-entry band.mtx both ways (the same indices, values within
+    rtol 1e-6)."""
+    from sparseharness_tpu_torch.formats import (
+        native_io, permute_coo, rcm_permutation, read_mtx,
+    )
+    from sparseharness_tpu_torch.gold import Correctness, check_result, spmv_abs_bound, spmv_gold
+    from sparseharness_tpu_torch.ops import sell2, spmv
+    from sparseharness_tpu_torch.semiring import PLUS_TIMES
+
+    res = {"library": str(native_io.library_path().relative_to(
+        os.path.dirname(os.path.abspath(__file__))))}
+    sync = torch.cuda.synchronize
+
+    def build():
+        rec = sell2.EncodeRecord()
+        op = sell2.build_sell2(rcoo, PLUS_TIMES, device="cuda", record=rec)
+        sync()
+        return op, rec
+
+    (ref, ref_rec), numpy_s = _with_native("0", build)
+    (op, rec), native_s = _with_native("1", build)
+    if not rec.native or ref_rec.native:
+        raise AssertionError("sell2 builds did not take the paths asked for")
+    res["sell2"] = {"rows": rcoo.shape[0], "nnz": rcoo.nnz, "numpy_seconds": numpy_s,
+                    "native_seconds": native_s, "speedup": numpy_s / native_s,
+                    "native_stages": rec.seconds, "numpy_stages": ref_rec.seconds,
+                    "numpy_body_slabs": rec.numpy_slabs,
+                    "tensors_identical": same_sell2(torch, op, ref)}
+    del ref
+    x = random_x(torch, PLUS_TIMES, rcoo.shape[1], np.random.default_rng(41))
+    got = sell2.sell2_dp_cuda(op, x, PLUS_TIMES)
+    plain = sell2.dp_sell2_plain(op, x, PLUS_TIMES, n_rows=rcoo.shape[0])
+    x_np = x.cpu().numpy()
+    bound = torch.from_numpy(spmv_abs_bound(rcoo, x_np).astype(np.float32)).cuda()
+    n = rcoo.shape[0]
+    res["sell2"]["max_abs_err"] = check_kernel(torch, "native sell2 vs plain", got[:n],
+                                               plain[:n], bound)
+    y = spmv(op, x, sr=PLUS_TIMES, variant="sell2", n_rows=n)
+    gold = spmv_gold(rcoo, x_np, np.zeros(n, np.float32), PLUS_TIMES)
+    verdict = check_result(y.cpu().numpy(), gold, scale=spmv_abs_bound(rcoo, x_np))
+    res["sell2"]["gold"] = verdict.value
+    if verdict is not Correctness.CORRECT:
+        raise AssertionError(f"native sell2 spmv: {verdict}")
+    del op, got, plain, y
+
+    n = band.shape[0]
+    shuffled = permute_coo(band, np.random.default_rng(37).permutation(n).astype(np.int32))
+    perm_np, rcm_numpy_s = _with_native("0", lambda: rcm_permutation(shuffled))
+    perm, rcm_native_s = _with_native("1", lambda: rcm_permutation(shuffled))
+    if not np.array_equal(perm, perm_np):
+        raise AssertionError("native RCM permutation != NumPy's")
+    res["rcm"] = {"rows": n, "nnz": shuffled.nnz, "numpy_seconds": rcm_numpy_s,
+                  "native_seconds": rcm_native_s, "speedup": rcm_numpy_s / rcm_native_s,
+                  "same_permutation": True}
+
+    np_coo, parse_numpy_s = _with_native("0", lambda: read_mtx(band_path))
+    nat_coo, parse_native_s = _with_native("1", lambda: read_mtx(band_path))
+    if not (np.array_equal(nat_coo.rows, np_coo.rows)
+            and np.array_equal(nat_coo.cols, np_coo.cols)):
+        raise AssertionError("native parse indices != NumPy's")
+    if not np.allclose(nat_coo.vals, np_coo.vals, rtol=1e-6, atol=0):
+        raise AssertionError("native parse values outside rtol 1e-6 of NumPy's")
+    res["parse"] = {"file_bytes": os.path.getsize(band_path), "nnz": nat_coo.nnz,
+                    "numpy_seconds": parse_numpy_s, "native_seconds": parse_native_s,
+                    "speedup": parse_numpy_s / parse_native_s,
+                    "values_bit_equal": bool(np.array_equal(nat_coo.vals, np_coo.vals))}
+    return res
 
 
 def sell_kernel_times(torch, op, coo, errs) -> dict:
@@ -1971,7 +2110,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     from sparseharness_tpu_torch.formats import (
-        banded_coo, block_random_coo, power_law_coo, random_coo,
+        banded_coo, block_random_coo, native_io, power_law_coo, random_coo,
     )
     from sparseharness_tpu_torch.ops import LAUNCHES, _build
 
@@ -1983,9 +2122,15 @@ def main() -> int:
 
     with Phase("build") as f:
         t0 = time.perf_counter()
-        reports = _build.build()
+        # the host library (g++) builds beside the kernels (one nvcc each)
+        with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+            host_lib = pool.submit(native_io.load)
+            reports = _build.build()
+            host_lib.result()
         f["build_seconds"] = time.perf_counter() - t0
         f["sources"] = sorted(_build.sources())
+        f["host_library"] = str(native_io.library_path().relative_to(
+            os.path.dirname(os.path.abspath(__file__))))
         log = "\n".join(reports.values())
         f["ptxas_max_registers"] = max(
             (int(m) for m in re.findall(r"Used (\d+) registers", log)), default=None)
@@ -2156,8 +2301,10 @@ def main() -> int:
     with Phase("main_path_sell_fixpoints") as f:
         sell_fixpoints(torch, band16, sapp_lines)
         f.update(card=card, nvidia_smi=smi, runs=sapp_lines)
+    mtx_dir = tempfile.TemporaryDirectory()
     with Phase("main_path_cli") as f:
-        cli_path(torch, band16, random_coo(1138, 1138, 4054, seed=0), cli_lines)
+        cli_path(torch, band16, random_coo(1138, 1138, 4054, seed=0), mtx_dir.name,
+                 cli_lines)
         f.update(card=card, nvidia_smi=smi, runs=cli_lines)
     llaunches = dict(LAUNCHES)
     emit({"phase": "main_path_sell_launches", "launches": llaunches})
@@ -2165,6 +2312,11 @@ def main() -> int:
         if llaunches[kernel] <= 0:
             raise AssertionError(f"the {kernel} kernel never launched on the sell path")
         launches[kernel] = llaunches[kernel]
+
+    with Phase("native_host") as f:
+        f.update(card=card, nvidia_smi=smi,
+                 **native_host(torch, rcoo, band16, os.path.join(mtx_dir.name, "band.mtx")))
+    mtx_dir.cleanup()
 
     with Phase("sell_kernel_times") as f:
         ltimes = sell_kernel_times(torch, sell_prob.operand, sell_coo, lerrs)

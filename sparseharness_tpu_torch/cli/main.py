@@ -525,8 +525,7 @@ def just_parser_main(argv: Optional[list] = None) -> int:
     p.add_argument("-k", "--kernel", default="ell")
     p.add_argument("-n", "--trials", type=int, default=5)
     p.add_argument("--no-native", action="store_true",
-                   help="accepted for the JAX commands' flags; no effect, since the "
-                        "port has only the NumPy parser")
+                   help="parse with NumPy instead of the native library")
     p.add_argument("--device", default="cuda",
                    help="torch device the operand is built on (default cuda)")
     args = p.parse_args(argv)
@@ -538,7 +537,7 @@ def just_parser_main(argv: Optional[list] = None) -> int:
 
     for trial in range(args.trials):
         t0 = time.perf_counter()
-        coo = read_mtx(args.matrix)
+        coo = read_mtx(args.matrix, use_native=not args.no_native)
         t1 = time.perf_counter()
         build_operand(coo, PLUS_TIMES, args.kernel, device=device)
         if device.type == "cuda":

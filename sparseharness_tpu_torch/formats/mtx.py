@@ -1,4 +1,4 @@
-"""MatrixMarket coordinate-format I/O (NumPy parse and write).
+"""MatrixMarket coordinate-format I/O (native or NumPy parse, and write).
 
 - banner: ``%%MatrixMarket matrix coordinate {real|integer|pattern} {general|symmetric|skew-symmetric}``
 - ``%`` comment lines, then ``rows cols nnz``, then one entry per line
@@ -6,16 +6,21 @@
 - symmetry ``symmetric`` ⇒ off-diagonal entries mirrored; ``skew-symmetric``
   ⇒ mirrored negated
 - 1-based indices converted to 0-based
+
+The entries parse in the native library (formats/native_io.py) unless
+``use_native=False`` or ``SPARSEHARNESS_TPU_NATIVE=0`` asks for the NumPy
+parser; a library that cannot be built raises rather than falling back.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import io
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
+from sparseharness_tpu_torch.formats import native_io
 from sparseharness_tpu_torch.formats.sparse import COO
 
 _FIELDS = ("real", "integer", "pattern", "complex")
@@ -72,12 +77,23 @@ def read_mtx_header(path: str) -> MtxHeader:
     raise MtxFormatError("missing size line")
 
 
-def read_mtx(path: str, dtype=np.float32, expand_symmetric: bool = True) -> COO:
+def read_mtx(path: str, dtype=np.float32, expand_symmetric: bool = True,
+             use_native: Optional[bool] = None) -> COO:
     """Read a .mtx file → COO with 0-based int32 indices and ``dtype`` values.
 
-    Duplicate entries are kept; the semiring reduction folds them."""
+    Duplicate entries are kept; the semiring reduction folds them.
+    ``use_native`` None takes the environment's choice (native unless
+    SPARSEHARNESS_TPU_NATIVE=0)."""
     header = read_mtx_header(path)
-    rows, cols, vals = _parse_entries_numpy(path, header)
+    if use_native is None:
+        use_native = native_io.enabled()
+    if use_native:
+        try:
+            rows, cols, vals = native_io.parse_entries(path, header)
+        except ValueError as e:  # a short or out-of-bounds body
+            raise MtxFormatError(str(e)) from e
+    else:
+        rows, cols, vals = _parse_entries_numpy(path, header)
     vals = vals.astype(dtype, copy=False)
 
     if header.symmetry in ("symmetric", "skew-symmetric") and expand_symmetric:
@@ -153,8 +169,9 @@ def write_mtx(path: str, coo: COO, field: str = "real",
     triangle (row ≥ col; row > col for skew, whose zero diagonal stays
     implicit). The dropped upper triangle must mirror the kept one exactly
     (negated for skew), else ``ValueError``, so read_mtx's expansion gives
-    the input back. Values print with enough digits to round-trip: 9
-    significant for float32, 17 for wider types."""
+    the input back (with ``field="pattern"`` only the (row, col) structure
+    must mirror, since no value is written). Values print with enough
+    digits to round-trip: 9 significant for float32, 17 for wider types."""
     if field not in ("real", "integer", "pattern"):
         raise ValueError(f"unsupported field {field!r}")
     if symmetry not in ("general", "symmetric", "skew-symmetric"):
@@ -169,8 +186,10 @@ def write_mtx(path: str, coo: COO, field: str = "real",
         lower = rows > cols
         upper = rows < cols
         sign = -1.0 if symmetry == "skew-symmetric" else 1.0
-        lo = _mirror_key(rows[lower], cols[lower], vals[lower])
-        up = _mirror_key(cols[upper], rows[upper], sign * vals[upper])
+        # a pattern file stores no values, so only the structure must mirror
+        kv = np.zeros(len(vals)) if field == "pattern" else vals
+        lo = _mirror_key(rows[lower], cols[lower], kv[lower])
+        up = _mirror_key(cols[upper], rows[upper], sign * kv[upper])
         if not (lo[0].shape == up[0].shape
                 and all(np.array_equal(a, b) for a, b in zip(lo, up))):
             raise ValueError(

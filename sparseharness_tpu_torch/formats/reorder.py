@@ -6,11 +6,12 @@ solves run entirely in permuted space (a symmetric permutation P·A·Pᵀ
 keeps the path structure) and un-permute once at the end, so the cost per
 step is untouched.
 
-Everything is NumPy on the host, vectorised level by level (George & Liu's
-CM with a per-level (parent rank, degree) order): preprocessing, never on
-the device clock. It is the JAX package's NumPy path; that package's
-native traversal gives the same permutation bit for bit, so the port has
-only this one.
+It runs on the host, as preprocessing, never on the device clock: by
+default in the native library (formats/native_io.py: the symmetrized
+pattern and the traversal in C++), otherwise (``use_native=False`` or
+``SPARSEHARNESS_TPU_NATIVE=0``) in NumPy, vectorised level by level
+(George & Liu's CM with a per-level (parent rank, degree) order). The two
+give the same permutation bit for bit.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Tuple
 
 import numpy as np
 
+from sparseharness_tpu_torch.formats import native_io
 from sparseharness_tpu_torch.formats.sparse import COO
 
 
@@ -118,15 +120,18 @@ def _pseudo_peripheral(seed, indptr, indices, deg, visited) -> int:
     return int(seed)
 
 
-def rcm_permutation(coo: COO) -> np.ndarray:
+def rcm_permutation(coo: COO, use_native: bool = True) -> np.ndarray:
     """Reverse Cuthill-McKee ordering; returns ``perm`` (new → old) for
     :func:`permute_coo`. Components are processed smallest-degree-seed
-    first; within a BFS level, nodes order by (parent rank, degree, id)."""
+    first; within a BFS level, nodes order by (parent rank, degree, id).
+    Native unless ``use_native`` is False or SPARSEHARNESS_TPU_NATIVE=0."""
     n = coo.shape[0]
     if coo.shape[0] != coo.shape[1]:
         raise ValueError("rcm requires a square matrix")
     if n == 0:
         return np.empty(0, np.int32)
+    if use_native and native_io.enabled():
+        return native_io.rcm_from_coo(n, coo.rows, coo.cols)
     indptr, indices, deg = _sym_pattern_csr(coo)
     visited = np.zeros(n, bool)
     order = np.empty(n, np.int64)

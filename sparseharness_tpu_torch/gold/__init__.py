@@ -1,4 +1,8 @@
-from sparseharness_tpu_torch.gold.spmv import spmv_abs_bound, spmv_gold  # noqa: F401
+from sparseharness_tpu_torch.gold.spmv import (  # noqa: F401
+    spmv_abs_bound,
+    spmv_gold,
+    spmv_gold_reference_quirk,
+)
 from sparseharness_tpu_torch.gold.check import Correctness, check_result  # noqa: F401
 from sparseharness_tpu_torch.gold.algorithms import (  # noqa: F401
     bfs_levels_gold,

@@ -78,3 +78,24 @@ def spmv_abs_bound(coo: COO, x: np.ndarray) -> np.ndarray:
         np.abs(coo.vals.astype(np.float64) * np.asarray(x, np.float64)[coo.cols]),
     )
     return bound
+
+
+def spmv_gold_reference_quirk(coo: COO, x: np.ndarray, y: np.ndarray, alpha: float,
+                              beta: float, zero: float) -> np.ndarray:
+    """Bit-for-bit model of the reference's quirky Gold<T>::spmv
+    (inc/spmv_gold.h:9-28): per nonzero ``acc += alpha*(x[col]*val) +
+    beta*y[val]``, values integer-truncated by the ellpack path, and the
+    matrix effectively transposed (rows keyed on the file's second
+    coordinate). Kept to document the reference's behaviour; no check uses
+    it."""
+    ell_rows = coo.cols  # reference rows = second stored coordinate
+    ell_cols = coo.rows
+    vals = coo.vals.astype(np.int32).astype(np.float64)  # int truncation quirk
+    out = np.full(coo.shape[1], 0.0, dtype=np.float64)
+    n = len(y)
+    for r, c, v in zip(ell_rows, ell_cols, vals):
+        y_idx = int(v) % n if n else 0
+        out[r] += alpha * (float(x[c]) * v) + beta * float(y[y_idx])
+    # every row's accumulator is seeded with `zero` (inc/spmv_gold.h:19)
+    out = out + zero
+    return out.astype(np.float32)

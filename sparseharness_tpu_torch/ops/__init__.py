@@ -67,3 +67,7 @@ from sparseharness_tpu_torch.ops.spmm_tiles import (  # noqa: F401
     spmm_bsr_ell_plain,
 )
 from sparseharness_tpu_torch.ops.spmm import spmm  # noqa: F401
+from sparseharness_tpu_torch.ops.verify import (  # noqa: F401
+    OperandInitError,
+    verify_operand_initialized,
+)

@@ -8,13 +8,14 @@ PyTorch runs eagerly, so there is no jitted form of :func:`spmv`.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Callable, Dict, Optional
 
 import torch
 
 from sparseharness_tpu_torch.formats.sparse import COO
 from sparseharness_tpu_torch.ops import (
-    bsr, bsr_band, bsr_ell, bsr_fused, dia, sell, sell2, torch_ops,
+    bsr, bsr_band, bsr_ell, bsr_fused, dia, sell, sell2, torch_ops, verify,
 )
 from sparseharness_tpu_torch.semiring import Semiring
 from sparseharness_tpu_torch.utils.device import DeviceLike
@@ -74,9 +75,17 @@ def get_variant(name: str) -> KernelVariant:
 AUTO_CHAIN = ("bsr_band", "bsr_fused", "sell2", "bsr_ell", "ell")
 
 
+def _check_init(coo: COO, sr: Semiring, op, variant: str) -> None:
+    """With SPARSEHARNESS_TPU_CHECK_INIT=1, the operand-initialization check."""
+    if os.environ.get("SPARSEHARNESS_TPU_CHECK_INIT", "0") == "1":
+        verify.verify_operand_initialized(coo, sr, op, variant)
+
+
 def build_operand(coo: COO, sr: Semiring, variant: str = "ell",
                   geometry: Geometry = Geometry(), *, device: DeviceLike = None):
-    return get_variant(variant).build(coo, sr, geometry, device)
+    op = get_variant(variant).build(coo, sr, geometry, device)
+    _check_init(coo, sr, op, variant)
+    return op
 
 
 def build_operand_auto(coo: COO, sr: Semiring, geometry: Geometry = Geometry(),
@@ -85,9 +94,12 @@ def build_operand_auto(coo: COO, sr: Semiring, geometry: Geometry = Geometry(),
     last = None
     for name in AUTO_CHAIN:
         try:
-            return name, get_variant(name).build(coo, sr, geometry, device)
+            op = get_variant(name).build(coo, sr, geometry, device)
         except NotImplementedError as e:
             last = e
+            continue
+        _check_init(coo, sr, op, name)
+        return name, op
     raise NotImplementedError(f"no variant in {AUTO_CHAIN} applies: {last}")
 
 

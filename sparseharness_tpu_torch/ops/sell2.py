@@ -1,8 +1,10 @@
 """The ``sell2`` variant: ragged and power-law rows in (128, 128) panels.
 
 The operand is the JAX package's gen-6 panel stream, built by the same
-NumPy encoder (its native and threaded paths give the same arrays, so they
-are left out). Each row slab of up to ``SLAB_ROWS`` rows holds panels of
+encoder: by default its native core (formats/native_io.py: the sort and
+fold, the heavy-row split and each slab's encode, two slabs at a time on a
+thread pool), else (``SPARSEHARNESS_TPU_NATIVE=0``) the NumPy one; both
+give the same arrays bit for bit. Each row slab of up to ``SLAB_ROWS`` rows holds panels of
 128 stream sublanes × 128 lanes, one layout per (slab, bucket). Per panel,
 three int32 words and one value per slot:
 
@@ -38,13 +40,16 @@ body.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import dataclasses
-from typing import List, NamedTuple, Optional, Tuple
+import time
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from sparseharness_tpu_torch.formats import native_io
 from sparseharness_tpu_torch.formats.sparse import COO, fold_duplicates, round_up
 from sparseharness_tpu_torch.ops import _build
 from sparseharness_tpu_torch.ops.torch_ops import _SEGMENT_IDENTITY, _SEGMENT_REDUCE
@@ -197,7 +202,7 @@ def _grouped_exclusive_cumsum(vals: np.ndarray, group_key: np.ndarray):
     return cum - np.cumsum(start_of)
 
 
-def _twoshelf_pack(cnt: np.ndarray):
+def _twoshelf_pack(cnt: np.ndarray, native: bool = False):
     """Two-shelf interval packing of one chunk-pool's block lane histograms
     (cnt: n_blocks × 128) onto stream sublanes.
 
@@ -210,7 +215,10 @@ def _twoshelf_pack(cnt: np.ndarray):
 
     Returns ``(n_sub, bind0, bind1, way, flat_sub)``: per-sublane local
     block ids per shelf (−1 = uncovered), per-block shelf bit, and the
-    per-entry sublane ids in (block, lane, pile-pos) order."""
+    per-entry sublane ids in (block, lane, pile-pos) order. ``native``
+    packs in the native library, with the same result."""
+    if native:
+        return native_io.sell2_pack(cnt, SHELF_MAX_PUSH, SHELF_MAX_HOLES, SHELF_HOLE_TRIES)
     demand = cnt.max(axis=1)
     order = np.argsort(-demand, kind="stable")
     order = order[demand[order] > 0]
@@ -343,16 +351,20 @@ def _heavy_split(s: COO, vals_all: np.ndarray, n: int, base_pad: int):
     return k_rows, k_cols, k_vals, piece_owner, base_pad + n_pieces
 
 
-def _encode_slab(rows_e, cols_e, vals_e, n_chunks: int, rows_slab: int,
-                 virtual_chunks: bool, virt_rows: list, zero, vals_np_dtype):
-    """One slab's panels: (wordA, wordB, vals_arr, chunk_of_panel, P, and
-    per-run panel / level / offset / width / out-slot arrays). Appends the
-    slab's virtual chunks to ``virt_rows``."""
+def _encode_slab(rows_e, cols_e, vals_e, n_chunks: int, virt_base: int, rows_slab: int,
+                 virtual_chunks: bool, zero, vals_np_dtype, bucket_order: bool,
+                 native: bool):
+    """One slab's panels, as native_io.sell2_encode_slab gives them:
+    ``(wordA, wordB, vals_arr, chunk_of_panel, p_depth, p_two, p_hi,
+    virt_rows, bf_depth, two_tiles, has_hi, P)``, the slab's virtual chunks
+    numbered from ``virt_base`` and the panels sorted stably by (depth
+    group, two tiles) if ``bucket_order``."""
     m = len(rows_e)
     lane = rows_e % LANES
     chunk = cols_e // CHUNK_COLS
     blkc = (cols_e % CHUNK_COLS) // LANES
     col_lane = cols_e % LANES
+    virt_rows: List[np.ndarray] = []
 
     # ---- virtual chunks: light chunk segments regroup under synthetic
     # chunk ids (light chunks have ≤ VIRT_DEMAND_T blocks by construction)
@@ -378,7 +390,7 @@ def _encode_slab(rows_e, cols_e, vals_e, n_chunks: int, rows_slab: int,
             vid_pool = np.repeat(np.arange(npools), sizes)
             echunk = chu.copy()
             eblk = (gbu % LANES).astype(np.int64)
-            echunk[lb] = n_chunks + len(virt_rows) + vid_pool
+            echunk[lb] = virt_base + vid_pool
             eblk[lb] = np.concatenate([np.arange(c, dtype=np.int64) for c in sizes])
             o = 0
             for c in sizes:
@@ -405,7 +417,7 @@ def _encode_slab(rows_e, cols_e, vals_e, n_chunks: int, rows_slab: int,
     pool_nsub = np.zeros(len(pool_ids), np.int64)
     for ci, ch in enumerate(pool_ids):
         sel = np.nonzero(cb_chunk == ch)[0]
-        pk = _twoshelf_pack(cnt_cbl[sel])
+        pk = _twoshelf_pack(cnt_cbl[sel], native)
         packs.append((sel,) + pk)
         pool_nsub[ci] = pk[0]
 
@@ -560,32 +572,93 @@ def _encode_slab(rows_e, cols_e, vals_e, n_chunks: int, rows_slab: int,
     iRhi = (rowR[o_hi], run_out[o_hi] - LANES)
     wordA[iRhi] = (wordA[iRhi] & ~np.int32((127 << 22) | (1 << 29))) | (
         (route_lane[o_hi] << 22) | (route_tile[o_hi] << 29))
-    runs = dict(panel=run_panel, level=run_level, off=run_off, w=run_w, out=run_out)
-    return (wordA, wordB, vals_arr, chunk_of_panel, P, runs,
-            bf_depth, two_tiles, has_hi)
+
+    # each panel's static needs: butterfly depth, two align tiles, hi routes
+    p_depth = np.zeros(P, np.int64)
+    np.maximum.at(p_depth, run_panel, run_level.astype(np.int64))
+    p_end = np.zeros(P, np.int64)
+    np.maximum.at(p_end, run_panel, run_off + run_w)
+    p_two = p_end > 126
+    p_hi = np.zeros(P, bool)
+    np.logical_or.at(p_hi, run_panel, run_out >= LANES)
+    if bucket_order:
+        order = np.argsort(_bucket_key(p_depth, p_two), kind="stable")
+        rows = (order[:, None] * LANES + np.arange(LANES)).reshape(-1)
+        wordA, wordB, vals_arr = wordA[rows], wordB[rows], vals_arr[rows]
+        chunk_of_panel = chunk_of_panel[order]
+        p_depth, p_two, p_hi = p_depth[order], p_two[order], p_hi[order]
+    vrows = np.stack(virt_rows) if virt_rows else np.zeros((0, LANES), np.int32)
+    return (wordA, wordB, vals_arr, chunk_of_panel, p_depth, p_two, p_hi, vrows,
+            bf_depth, two_tiles, has_hi, P)
+
+
+def _bucket_key(p_depth: np.ndarray, p_two: np.ndarray) -> np.ndarray:
+    """A panel's call bucket: depth group {0}, {1, 2}, {3+} × two tiles."""
+    dgrp = np.where(p_depth == 0, 0, np.where(p_depth <= 2, 1, 2))
+    return dgrp * 2 + p_two.astype(np.int64)
+
+
+def _stored(vals: np.ndarray, store: torch.dtype) -> np.ndarray:
+    """Values as the slabs store them, for the native encode: bf16 as its
+    16-bit patterns (rounded in torch, to nearest even), others as they are."""
+    if store != torch.bfloat16:
+        return vals
+    t = torch.from_numpy(np.ascontiguousarray(vals, np.float32)).to(torch.bfloat16)
+    return t.view(torch.int16).numpy()
 
 
 def _device_slab(chunk, wordA, wordB, vals, store: torch.dtype,
                  device: torch.device) -> dict:
-    v = torch.from_numpy(np.ascontiguousarray(vals)).to(device)
+    v = torch.from_numpy(np.ascontiguousarray(vals))
+    # int16 values are the bf16 patterns of the native encode
+    v = v.view(store) if v.dtype == torch.int16 else v.to(store)
     return {"chunk": torch.from_numpy(np.ascontiguousarray(chunk)).to(device),
             "wordA": torch.from_numpy(np.ascontiguousarray(wordA)).to(device),
             "wordB": torch.from_numpy(np.ascontiguousarray(wordB)).to(device),
-            "vals": v.to(store)}
+            "vals": v.to(device)}
+
+
+@dataclasses.dataclass
+class EncodeRecord:
+    """What a :func:`build_sell2` call did on the host: whether it took
+    the native path, its seconds by stage (``fold+rowsort``,
+    ``heavy-split``, ``native-submit``, ``native-slab`` waiting on the pool,
+    ``numpy-slab``, ``bucket+upload``, ``plan``), and the slabs the native
+    encode refused, which ran the NumPy body."""
+
+    native: bool = False
+    seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+    numpy_slabs: int = 0
+
+    def mark(self, stage: str, t0: float) -> float:
+        """Add the time since ``t0`` to ``stage``; returns now."""
+        now = time.perf_counter()
+        self.seconds[stage] = self.seconds.get(stage, 0.0) + now - t0
+        return now
 
 
 def build_sell2(coo: COO, sr: Semiring, value_dtype: str = "float32",
                 split_calls: bool = True, virtual_chunks: bool = True, *,
-                device: DeviceLike = None) -> Sell2Operand:
-    """Pack a COO matrix into the panel stream, as the JAX package's NumPy
-    encoder does, and upload it with the kernel's plan.
+                device: DeviceLike = None,
+                record: Optional[EncodeRecord] = None) -> Sell2Operand:
+    """Pack a COO matrix into the panel stream, as the JAX package's encoder
+    does, and upload it with the kernel's plan.
 
     ``split_calls``: bucket each slab's panels by (butterfly depth group
     {0}, {1, 2}, {3+}; two align tiles), one layout per bucket, so that
     layouts share a row0. ``virtual_chunks``: regroup blocks of light chunk
     segments into virtual chunks. bf16 values are rounded from float32 in
-    torch, to nearest even, as ml_dtypes rounds them."""
+    torch, to nearest even, as ml_dtypes rounds them. The encode is native
+    unless SPARSEHARNESS_TPU_NATIVE=0 (a library that cannot be built
+    raises NativeUnavailable). A ``record`` passed in is filled with the
+    host seconds by stage and the slabs the native encode refused."""
     device = resolve_device(device)
+    native = native_io.enabled()
+    if native:
+        native_io.load()  # builds the library on first use, outside the stage clocks
+    rec = EncodeRecord() if record is None else record
+    rec.native = native
+    t = time.perf_counter()
     n, c = coo.shape
     _, _, _, _, zero, as_int = _carrier(sr)
     np_dtype = np.dtype(np.int32) if as_int else sr.np_dtype
@@ -593,69 +666,107 @@ def build_sell2(coo: COO, sr: Semiring, value_dtype: str = "float32",
     store = torch.bfloat16 if bf16 else (torch.int32 if as_int else sr.dtype)
     zero = np.asarray(zero, np_dtype)
 
-    coo = fold_duplicates(coo, _np_fold_for(sr, as_int))
-    s = coo.sorted_by_row()
+    fold = _np_fold_for(sr, as_int)
+    if native:
+        s = native_io.sell2_sort_fold(coo, fold.__name__)
+    else:
+        s = fold_duplicates(coo, fold).sorted_by_row()
     with np.errstate(invalid="ignore"):
         vals_all = s.vals if not as_int else (s.vals != 0).astype(np.int32)
         vals_all = vals_all.astype(np_dtype)
+    t = rec.mark("fold+rowsort", t)
 
     base_pad = round_up(max(n, 1), 1024)
-    k_rows, k_cols, k_vals, piece_owner, n_tot = _heavy_split(s, vals_all, n, base_pad)
+    if native:
+        k_rows, k_cols, k_vals, piece_owner, n_pieces = native_io.sell2_heavy_split(
+            s, vals_all, base_pad, SPLIT_T)
+        n_tot = base_pad + n_pieces if n_pieces else n
+    else:
+        k_rows, k_cols, k_vals, piece_owner, n_tot = _heavy_split(s, vals_all, n, base_pad)
+    t = rec.mark("heavy-split", t)
     n_pad = round_up(max(n_tot, 1), 1024)
     n_chunks = round_up(max(c, 1), CHUNK_COLS) // CHUNK_COLS
     indptr = np.zeros(n_tot + 1, np.int64)
     np.cumsum(np.bincount(k_rows, minlength=n_tot), out=indptr[1:])
+    slab_ranges = []  # (row0, rows, first entry, end entry)
+    for r0 in range(0, n_pad, SLAB_ROWS):
+        rows_slab = min(SLAB_ROWS, n_pad - r0)
+        slab_ranges.append((r0, rows_slab, int(indptr[min(r0, n_tot)]),
+                      int(indptr[min(r0 + rows_slab, n_tot)])))
 
     slabs: list = []
     layouts: List[_SlabLayout] = []
     total_slots = 0
     virt_rows: List[np.ndarray] = []
-    for r0 in range(0, n_pad, SLAB_ROWS):
-        rows_slab = min(SLAB_ROWS, n_pad - r0)
-        e0 = int(indptr[min(r0, n_tot)])
-        e1 = int(indptr[min(r0 + rows_slab, n_tot)])
-        if e1 == e0:
-            layouts.append(_SlabLayout(r0, rows_slab, 0, 1, False, False))
-            slabs.append(None)
-            continue
-        (wordA, wordB, vals_arr, chunk_of_panel, P, runs, bf_depth, two_tiles,
-         has_hi) = _encode_slab(k_rows[e0:e1] - r0, k_cols[e0:e1], k_vals[e0:e1],
-                                n_chunks, rows_slab, virtual_chunks, virt_rows, zero,
-                                np_dtype)
-        total_slots += P * LANES * LANES
-        if not split_calls:
-            slabs.append(_device_slab(chunk_of_panel, wordA, wordB, vals_arr, store,
-                                      device))
-            layouts.append(_SlabLayout(r0, rows_slab, P, bf_depth, two_tiles, has_hi))
-            continue
-        # panels grouped by like static needs, one layout per bucket
-        rp = runs["panel"]
-        p_depth = np.zeros(P, np.int64)
-        np.maximum.at(p_depth, rp, runs["level"].astype(np.int64))
-        p_end = np.zeros(P, np.int64)
-        np.maximum.at(p_end, rp, runs["off"] + runs["w"])
-        p_two = p_end > 126
-        p_hi = np.zeros(P, bool)
-        np.logical_or.at(p_hi, rp, runs["out"] >= LANES)
-        dgrp = np.where(p_depth == 0, 0, np.where(p_depth <= 2, 1, 2))
-        bkey = dgrp * 2 + p_two.astype(np.int64)
-        wa3 = wordA.reshape(P, LANES, LANES)
-        wb3 = wordB.reshape(P, LANES, LANES)
-        va3 = vals_arr.reshape(P, LANES, LANES)
-        for kk in np.unique(bkey):
-            sel = np.nonzero(bkey == kk)[0]
-            slabs.append(_device_slab(
-                chunk_of_panel[sel], wa3[sel].reshape(-1, LANES),
-                wb3[sel].reshape(-1, LANES), va3[sel].reshape(-1, LANES), store, device))
-            layouts.append(_SlabLayout(
-                r0, rows_slab, len(sel), int(p_depth[sel].max()),
-                bool(p_two[sel].any()), bool(p_hi[sel].any()) or rows_slab > 16384))
+    # the native encode runs two slabs at a time (the ctypes call drops the
+    # GIL); each slab numbers its virtual chunks from n_chunks, and they are
+    # moved past the earlier slabs' ones as the results come in slab order
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=2) if native else None
+    try:
+        futures = {}
+        if native:
+            vals_store, zero_store = _stored(k_vals, store), _stored(zero.reshape(1), store)
+            for r0, rows_slab, e0, e1 in slab_ranges:
+                if e1 > e0:
+                    futures[r0] = pool.submit(
+                        native_io.sell2_encode_slab, k_rows[e0:e1] - r0, k_cols[e0:e1],
+                        vals_store[e0:e1], zero_store, n_chunks, n_chunks, rows_slab,
+                        virtual_chunks, SHELF_MAX_PUSH, SHELF_MAX_HOLES, SHELF_HOLE_TRIES,
+                        VIRT_DEMAND_T, split_calls)
+            t = rec.mark("native-submit", t)
+        for r0, rows_slab, e0, e1 in slab_ranges:
+            if e1 == e0:
+                layouts.append(_SlabLayout(r0, rows_slab, 0, 1, False, False))
+                slabs.append(None)
+                continue
+            res = futures[r0].result() if native else None
+            if res is not None:
+                t = rec.mark("native-slab", t)
+            else:
+                # the NumPy body: SPARSEHARNESS_TPU_NATIVE=0, or a slab
+                # that the native encode refused (past the align budget)
+                if native:
+                    rec.numpy_slabs += 1
+                res = _encode_slab(k_rows[e0:e1] - r0, k_cols[e0:e1], k_vals[e0:e1],
+                                   n_chunks, n_chunks, rows_slab, virtual_chunks, zero,
+                                   np_dtype, split_calls, native)
+                t = rec.mark("numpy-slab", t)
+            (wordA, wordB, vals_arr, chunk_of_panel, p_depth, p_two, p_hi, vrows, bf_depth,
+             two_tiles, has_hi, P) = res
+            if len(vrows):
+                chunk_of_panel[chunk_of_panel >= n_chunks] += len(virt_rows)
+                virt_rows.extend(vrows)
+            total_slots += P * LANES * LANES
+            _blowup_guard(P * LANES * LANES, e1 - e0, " in a slab")
+            if not split_calls:
+                slabs.append(_device_slab(chunk_of_panel, wordA, wordB, vals_arr, store,
+                                          device))
+                layouts.append(_SlabLayout(r0, rows_slab, P, bf_depth, two_tiles, has_hi))
+            else:
+                # panels come bucket-ordered: one layout per run of a bucket
+                bounds = np.flatnonzero(np.diff(_bucket_key(p_depth, p_two))) + 1
+                for p0, p1 in zip(np.r_[0, bounds], np.r_[bounds, P]):
+                    p0, p1 = int(p0), int(p1)
+                    rows = slice(p0 * LANES, p1 * LANES)
+                    slabs.append(_device_slab(chunk_of_panel[p0:p1], wordA[rows],
+                                              wordB[rows], vals_arr[rows], store, device))
+                    layouts.append(_SlabLayout(
+                        r0, rows_slab, p1 - p0, int(p_depth[p0:p1].max()),
+                        bool(p_two[p0:p1].any()),
+                        bool(p_hi[p0:p1].any()) or rows_slab > 16384))
+            t = rec.mark("bucket+upload", t)
+    finally:
+        if pool is not None:
+            # a guard that raises mid-build cancels the slabs not yet started
+            pool.shutdown(wait=False, cancel_futures=True)
 
-    _blowup_guard(total_slots, max(coo.nnz, 1))
+    _blowup_guard(total_slots, max(s.nnz, 1))
     owner = (torch.from_numpy(piece_owner).to(device)
              if piece_owner is not None else None)
     virt = torch.from_numpy(np.stack(virt_rows)).to(device) if virt_rows else None
-    return assemble(slabs, tuple(layouts), n_chunks, n, base_pad, owner, virt, device)
+    op = assemble(slabs, tuple(layouts), n_chunks, n, base_pad, owner, virt, device)
+    rec.mark("plan", t)
+    return op
 
 
 def assemble(slabs, layouts, n_chunks: int, n_rows: int, base_pad: int,

@@ -4,4 +4,5 @@ from sparseharness_tpu_torch.utils.timing import (  # noqa: F401
     ScopedTimer,
     report_timing,
     set_trace_stream,
+    timed,
 )

@@ -10,6 +10,7 @@ with CUDA events and injected through :func:`report_timing`.
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import sys
 import time
@@ -56,3 +57,18 @@ class ScopedTimer(contextlib.AbstractContextManager):
         report_timing(self.name, self.context, self.ms)
         return False
 
+
+
+def timed(context: str = ""):
+    """Decorator form of :class:`ScopedTimer`, named by the function's
+    qualified name (the reference's start_timer(name, ctx) macro)."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            with ScopedTimer(fn.__qualname__, context):
+                return fn(*args, **kwargs)
+
+        return wrapper
+
+    return deco

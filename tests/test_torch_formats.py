@@ -168,3 +168,30 @@ def test_write_mtx_refuses_what_jax_refuses(tmp_path):
             jf.write_mtx(str(tmp_path / "j.mtx"), asym(jf), **kw)
         with pytest.raises(ValueError):
             tf.write_mtx(str(tmp_path / "t.mtx"), asym(tf), **kw)
+
+
+def test_write_mtx_pattern_symmetric_compares_structure_only(tmp_path):
+    """A structurally symmetric matrix with asymmetric values writes as a
+    symmetric pattern file in the port (no value is written, so only the
+    (row, col) structure must mirror); the JAX package refuses it. A
+    structurally asymmetric one is refused by both."""
+    asym_vals = lambda m: m.coo_from_arrays(  # noqa: E731
+        [1, 0, 2, 2], [0, 1, 2, 0], np.float32([1, 2, 5, 3]), (3, 3))
+    with pytest.raises(ValueError):
+        jf.write_mtx(str(tmp_path / "j.mtx"), asym_vals(jf), field="pattern",
+                     symmetry="symmetric")
+    with pytest.raises(ValueError):
+        tf.write_mtx(str(tmp_path / "t.mtx"), asym_vals(tf), field="pattern",
+                     symmetry="symmetric")
+    both = lambda m: m.coo_from_arrays(  # noqa: E731
+        [1, 0, 2, 2, 0], [0, 1, 2, 0, 2], np.float32([1, 2, 5, 3, 4]), (3, 3))
+    path = str(tmp_path / "p.mtx")
+    tf.write_mtx(path, both(tf), field="pattern", symmetry="symmetric")
+    with pytest.raises(ValueError):
+        jf.write_mtx(str(tmp_path / "j2.mtx"), both(jf), field="pattern", symmetry="symmetric")
+    back = tf.read_mtx(path)
+    assert sorted(zip(back.rows.tolist(), back.cols.tolist())) == [
+        (0, 1), (0, 2), (1, 0), (2, 0), (2, 2)]
+    assert np.all(back.vals == 1.0)
+    with pytest.raises(ValueError):  # values still must mirror in a real file
+        tf.write_mtx(str(tmp_path / "r.mtx"), both(tf), symmetry="symmetric")

@@ -192,3 +192,25 @@ def test_checked_fixpoint_unpermutes_before_the_gold():
     res = benchmark_fixpoint_stepped(comp, gold=sssp_gold(g, 4),
                                      config=BenchmarkConfig(trials=1, delta=1e-5))
     assert res.correctness is Correctness.CORRECT
+
+
+def test_timed_reports_the_function_as_a_profiling_datum():
+    from sparseharness_tpu_torch.utils import timed
+
+    @timed("ctx")
+    def work(a, b=2):
+        """doc"""
+        return a * b
+
+    out = io.StringIO()
+    set_trace_stream(out)
+    try:
+        assert work(3, b=4) == 12
+    finally:
+        set_trace_stream(None)
+    assert work.__name__ == "work" and work.__doc__ == "doc"
+    line = out.getvalue().strip()
+    assert line.startswith('PROFILING_DATUM("test_timed_reports_the_function_as_a_profiling_'
+                           'datum.<locals>.work", "ctx", ')
+    assert line.endswith(', "Python")')
+    assert float(line.split(", ")[2]) >= 0.0

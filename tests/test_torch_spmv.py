@@ -135,3 +135,21 @@ def test_auto_chain_picks_band_then_fused():
                                  device="cpu")
     assert name == "bsr_fused"
     assert get_variant("sell2").name == "sell2"  # registered
+
+
+def test_spmv_gold_reference_quirk_matches_jax():
+    """The model of the reference's quirky gold (transposed rows, values
+    truncated to int, beta·y[val]) gives JAX's bits."""
+    from sparseharness_tpu.gold import spmv_gold_reference_quirk as jax_quirk
+    from sparseharness_tpu_torch.gold import spmv_gold_reference_quirk
+
+    coo_t, coo_j = tf.random_coo(60, 50, 300, seed=2), jf.random_coo(60, 50, 300, seed=2)
+    coo_t = coo_t.with_values(coo_t.vals * 9)
+    coo_j = coo_j.with_values(coo_j.vals * 9)
+    rng = np.random.default_rng(3)
+    x = rng.uniform(-1, 1, 60).astype(np.float32)
+    y = rng.uniform(-1, 1, 17).astype(np.float32)
+    got = spmv_gold_reference_quirk(coo_t, x, y, 1.5, 0.25, 2.0)
+    want = jax_quirk(coo_j, x, y, 1.5, 0.25, 2.0)
+    assert got.dtype == np.float32 and got.shape == (50,)
+    np.testing.assert_array_equal(got, want)
