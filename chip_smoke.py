@@ -147,7 +147,35 @@ result. Phases:
    fused launch's level-0 rows and the dp held against the plain versions
    bit for bit; torch.profiler's device ms a launch of each sell kernel
    inside the dp, which the kernels line takes for the later levels (their
-   CUDA-event time is the host's enqueue).
+   CUDA-event time is the host's enqueue);
+24. sharded_world1: the row-sharded solvers (parallel/) in a world of one
+   NCCL rank on the card, started by parallel.launch.run_world. The rank
+   first runs the single-device port, then, with the launch counters reset
+   just before and read just after, the sharded path: on the bench band
+   (524,288 rows) the gather, halo, band and auto modes, each with SpMV in
+   min_plus, or_and and plus_times against the single-device SpMV (bit for
+   bit, plus_times within the tolerance above) and sssp, bfs (from the
+   middle row) and pagerank against the single-device solves on x,
+   iterations and converged (pagerank's x within 1e-6); the streamed band
+   path forced (an SpMV and a 50-step capped sssp); auto_sharded_spmv on
+   the 1 << 16 band; sell mode's SpMVs and solves and the frontier's sssp
+   and bfs on the ragged matrix; the tiles mode's multi_sssp and
+   multi_bfs from 8 roots (spmm_tiles at m = 8) on the blocked matrix; and
+   the 1 << 16 band's band-mode sssp and frontier solves. The bsr_band
+   (staged and streamed), sell2 and spmm_tiles launches of that run must
+   each be > 0. Last, the band sssp against the single-device band sssp:
+   steps, seconds, host ms a step and torch.profiler's device-busy ms a
+   step over a 300-step solve;
+25. sharded_ranks2_one_card: two gloo ranks sharing the card (every
+   exchanged buffer copied through the host, the backend's rule): the band
+   mode's sssp and the frontier's bfs and sssp on the 1 << 16 band, equal
+   to the world of one's answers;
+26. weak_scaling: harness/scaling.py's world-1 NCCL point of the band
+   kernel at the bench band's width, ms per op and no efficiency;
+27. sharded_cli: spmv and sssp --mesh 1 --sharded-mode band (as in JAX,
+   --mesh 1 shards nothing), sssp --devices 0 --sharded-mode band (the
+   sharded path, records tagged sssp:sharded1:band) and spmv --mesh 2,
+   which one card refuses with JAX's make_mesh error.
 
 Then the kernels line, the nvidia-smi line and, last, the ok line.
 """
@@ -2103,6 +2131,405 @@ def spmm_kernel_times(torch, coo, bcoo) -> dict:
     return res
 
 
+# ---------------------------------------------------------------- sharded
+
+SHARDED_ROOTS = 8        # the tiles mode's sources: spmm_tiles at m = 8
+STREAMED_STEPS = 50      # the streamed band path's capped fixpoint
+BUSY_STEPS = 300         # the profiled window of the band sssp, in steps
+SHARDED_SEMIRINGS = ("min_plus", "or_and", "plus_times")
+CLI_BAND_N = 1 << 12     # the sharded CLI's band
+
+
+def _sharded_x(name: str, n: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    if name == "or_and":
+        return rng.random(n) < 0.3
+    return rng.uniform(0.1, 1.0, n).astype(np.float32)
+
+
+def _check_sharded_dp(label, got, ref, name, bound) -> float:
+    """min_plus and or_and bit for bit; plus_times within PT_DELTA ·
+    max(1, |ref|, Σ|a·x|). Returns the largest difference."""
+    got, ref = got.cpu().numpy(), ref.cpu().numpy()
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"{label}: {got.shape} {got.dtype} against {ref.shape} {ref.dtype}")
+    if name != "plus_times":
+        if got.tobytes() != ref.tobytes():
+            raise AssertionError(f"{label}: {int((got != ref).sum())} rows differ")
+        return 0.0
+    err = np.abs(got - ref)
+    if not np.all(err <= PT_DELTA * np.maximum(np.maximum(1.0, np.abs(ref)), bound)):
+        raise AssertionError(f"{label}: plus_times off by up to {float(err.max())}")
+    return float(err.max())
+
+
+def _check_sharded_fix(label, got, ref, app) -> dict:
+    """x bit for bit (pagerank within 1e-6), iterations, converged and the
+    BFS levels as the single-device solve's."""
+    if (got.iterations, got.converged) != (ref.iterations, ref.converged):
+        raise AssertionError(f"{label}: {got.iterations} steps, converged {got.converged}, "
+                             f"against {ref.iterations}, {ref.converged}")
+    gx, rx = got.x.cpu().numpy(), ref.x.cpu().numpy()
+    if app == "pagerank":
+        if not np.abs(gx - rx).max() <= 1e-6:
+            raise AssertionError(f"{label}: pagerank off by {float(np.abs(gx - rx).max())}")
+    elif gx.tobytes() != rx.tobytes():
+        raise AssertionError(f"{label}: {int((gx != rx).sum())} entries differ")
+    if ref.aux is not None and got.aux.cpu().numpy().tobytes() != ref.aux.cpu().numpy().tobytes():
+        raise AssertionError(f"{label}: the levels differ")
+    return {"steps": got.iterations, "converged": got.converged}
+
+
+def _sync(torch, device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _busy_ms_per_step(torch, device, solve, steps: int):
+    """The device's busy ms a step over a solve of ``steps`` steps, from
+    torch.profiler (every kernel and copy it records); None off a card."""
+    if device.type != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    _sync(torch, device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        solve()
+        _sync(torch, device)
+    busy = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+               for e in prof.key_averages())
+    return busy / 1e3 / steps
+
+
+def _timed(torch, device, fn):
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    res = fn()
+    _sync(torch, device)
+    return res, time.perf_counter() - t0
+
+
+def _sharded_world1_rank(mesh, backend: str) -> dict:
+    """One NCCL rank on cuda:0 (a world of one, started by run_world): every
+    sharded mode at full width against the single-device port, the launch
+    counts of the sharded path alone, the band sssp's step costs, and the
+    1 << 16 band's answers for the two-rank phase."""
+    import torch
+
+    from sparseharness_tpu_torch import algorithms as apps
+    from sparseharness_tpu_torch.formats import banded_coo, block_random_coo, power_law_coo
+    from sparseharness_tpu_torch.gold import spmv_abs_bound
+    from sparseharness_tpu_torch.ops import LAUNCHES, build_operand, spmv
+    from sparseharness_tpu_torch.parallel import auto_sharded_spmv, frontier, sharded
+    from sparseharness_tpu_torch.parallel import sharded_band, sharded_sell
+    from sparseharness_tpu_torch.semiring import MIN_PLUS, PLUS_TIMES, get_semiring
+
+    dev = mesh.device
+    if (mesh.size, mesh.backend) != (1, backend):
+        raise AssertionError(f"expected one {backend} rank, got {mesh}")
+    out = {"mesh": {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend,
+                    "device": str(dev)}}
+    t0 = time.perf_counter()
+    band = banded_coo(FULL_N, BAND, seed=1)
+    rcoo = power_law_coo(RAGGED_N, RAGGED_NNZ, alpha=1.5, seed=RAGGED_SEED)
+    bcoo = block_random_coo(BLOCK_N, 2, bm=8, bn=128, seed=BLOCK_SEED)
+    band16 = banded_coo(SELL_BAND_N, BAND, seed=1)
+    roots = np.random.default_rng(29).choice(BLOCK_N, SHARDED_ROOTS, replace=False)
+    root = FULL_N // 2  # the band's solves spread both ways: half the steps
+    xs = {(m, name): _sharded_x(name, coo.shape[1], seed)
+          for m, coo, seed in (("band", band, 3), ("ragged", rcoo, 4), ("band16", band16, 5))
+          for name in SHARDED_SEMIRINGS}
+    bounds = {m: spmv_abs_bound(coo, xs[(m, "plus_times")])
+              for m, coo in (("band", band), ("ragged", rcoo), ("band16", band16))}
+    out["data_seconds"] = time.perf_counter() - t0
+
+    # ---- the single-device port, before the counted run
+    t0 = time.perf_counter()
+    ref_dp = {}
+    for m, coo, variant in (("band", band, "bsr_band"), ("ragged", rcoo, "sell2"),
+                            ("band16", band16, "bsr_band")):
+        for name in SHARDED_SEMIRINGS:
+            sr = get_semiring(name)
+            op = build_operand(coo, sr, variant, device=dev)
+            ref_dp[(m, name)] = spmv(op, torch.from_numpy(xs[(m, name)]).to(dev), sr=sr,
+                                     variant=variant, n_rows=coo.shape[0])
+            del op
+    ref = {
+        ("band", "sssp"): _timed(torch, dev, lambda: apps.sssp(band, root, variant="bsr_band",
+                                                          device=dev)),
+        ("band", "bfs"): _timed(torch, dev, lambda: apps.bfs(band, root, variant="bsr_band",
+                                                        device=dev)),
+        ("band", "pagerank"): _timed(torch, dev, lambda: apps.pagerank(band, variant="bsr_band",
+                                                                  device=dev)),
+        ("ragged", "sssp"): _timed(torch, dev, lambda: apps.sssp(rcoo, 0, variant="sell2",
+                                                            device=dev)),
+        ("ragged", "bfs"): _timed(torch, dev, lambda: apps.bfs(rcoo, 0, variant="sell2",
+                                                          device=dev)),
+        ("ragged", "pagerank"): _timed(torch, dev, lambda: apps.pagerank(rcoo, variant="sell2",
+                                                                    device=dev)),
+        ("blocked", "multi_sssp"): _timed(torch, dev, lambda: apps.multi_sssp(
+            bcoo, roots, variant="bsr_ell", device=dev)),
+        ("blocked", "multi_bfs"): _timed(torch, dev, lambda: apps.multi_bfs(
+            bcoo, roots, variant="bsr_ell", device=dev)),
+        ("band16", "sssp"): _timed(torch, dev, lambda: apps.sssp(band16, 0, variant="bsr_band",
+                                                            device=dev)),
+        ("band16", "bfs"): _timed(torch, dev, lambda: apps.bfs(band16, 0, variant="bsr_band",
+                                                          device=dev)),
+        ("band_capped", "sssp"): _timed(torch, dev, lambda: apps.sssp(
+            band, root, variant="bsr_band", max_iter=STREAMED_STEPS, device=dev)),
+    }
+    ref = {k: v[0] for k, v in ref.items()}
+    out["reference_seconds"] = time.perf_counter() - t0
+
+    # ---- the sharded path, counted
+    spmv_of = {"ShardedBandOperand": sharded_band.sharded_spmv_band,
+               "HaloEll": sharded.sharded_spmv_halo, "ShardedEll": sharded.sharded_spmv}
+    solves = {"sssp": lambda coo, r, **kw: sharded.sharded_sssp(coo, r, mesh=mesh, **kw),
+              "bfs": lambda coo, r, **kw: sharded.sharded_bfs(coo, r, mesh=mesh, **kw),
+              "pagerank": lambda coo, r, **kw: sharded.sharded_pagerank(coo, mesh=mesh, **kw)}
+    errs, runs = {}, []
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    t_path = time.perf_counter()
+    for mode in ("gather", "halo", "band", "auto"):
+        for name in SHARDED_SEMIRINGS:
+            sr = get_semiring(name)
+            op = sharded._build_sharded_auto(band, sr, 1, mode, device=dev)[0]
+            if mode == "auto" and type(op).__name__ != "ShardedBandOperand":
+                raise AssertionError(f"auto resolved {type(op).__name__} on the band")
+            got = spmv_of[type(op).__name__](mesh, op, xs[("band", name)], sr, FULL_N)
+            errs[f"{mode} {name}"] = _check_sharded_dp(
+                f"{mode} spmv {name}", got, ref_dp[("band", name)], name, bounds["band"])
+            del op, got
+        for app in ("sssp", "bfs", "pagerank"):
+            res, secs = _timed(torch, dev, lambda: solves[app](band, root, mode=mode))
+            runs.append({"matrix": "band", "mode": mode, "app": app, "seconds": secs,
+                         **_check_sharded_fix(f"{mode} {app}", res, ref[("band", app)], app)})
+            del res
+    # the streamed band path, forced: one SpMV and a capped fixpoint
+    op = dataclasses.replace(
+        sharded_band.build_sharded_band(band, MIN_PLUS, 1, device=dev)[0], windowed=True)
+    errs["band streamed min_plus"] = _check_sharded_dp(
+        "streamed spmv", sharded_band.sharded_spmv_band(mesh, op, xs[("band", "min_plus")],
+                                                        MIN_PLUS, FULL_N),
+        ref_dp[("band", "min_plus")], "min_plus", None)
+    x0 = np.full(FULL_N, np.finfo(np.float32).max, np.float32)
+    x0[root] = 0.0
+    res = sharded_band.sharded_fixpoint_band(mesh, op, x0, MIN_PLUS, n_rows=FULL_N,
+                                             combine=sharded.combine_min,
+                                             max_iter=STREAMED_STEPS)
+    runs.append({"matrix": "band", "mode": "band streamed", "app": "sssp capped",
+                 **_check_sharded_fix("streamed sssp", res, ref[("band_capped", "sssp")],
+                                      "sssp")})
+    del op, res
+    # auto_sharded_spmv: the ELL rows as a Shard(0) DTensor, on the 1 << 16
+    # band (the ELL build sorts on the host)
+    errs["auto_sharded_spmv plus_times"] = _check_sharded_dp(
+        "auto_sharded_spmv", auto_sharded_spmv(mesh, band16, PLUS_TIMES,
+                                               xs[("band16", "plus_times")]),
+        ref_dp[("band16", "plus_times")], "plus_times", bounds["band16"])
+    # sell mode and the frontier on the ragged matrix
+    for name in SHARDED_SEMIRINGS:
+        sr = get_semiring(name)
+        op = sharded_sell.build_sharded_sell(rcoo, sr, 1, device=dev)[0]
+        errs[f"sell {name}"] = _check_sharded_dp(
+            f"sell spmv {name}", sharded_sell.sharded_spmv_sell(
+                mesh, op, xs[("ragged", name)], sr, RAGGED_N),
+            ref_dp[("ragged", name)], name, bounds["ragged"])
+        del op
+    for app in ("sssp", "bfs", "pagerank"):
+        res, secs = _timed(torch, dev, lambda: solves[app](rcoo, 0, mode="sell"))
+        runs.append({"matrix": "ragged", "mode": "sell", "app": app, "seconds": secs,
+                     **_check_sharded_fix(f"sell {app}", res, ref[("ragged", app)], app)})
+    for app, fn in (("sssp", frontier.frontier_sssp), ("bfs", frontier.frontier_bfs)):
+        res, secs = _timed(torch, dev, lambda: fn(rcoo, 0, mesh=mesh))
+        if res.local != "sell":
+            raise AssertionError(f"frontier {app} ran {res.local}, not sell")
+        runs.append({"matrix": "ragged", "mode": "frontier", "app": app, "seconds": secs,
+                     "sent_entries": res.sent_entries, "dense_phase_iters": res.dense_phase_iters,
+                     "dense_fallbacks": res.dense_fallbacks,
+                     **_check_sharded_fix(f"frontier {app}", res, ref[("ragged", app)], app)})
+    # tiles mode: spmm_tiles at m = 8 on the blocked matrix
+    for app, fn in (("multi_sssp", sharded.sharded_multi_sssp),
+                    ("multi_bfs", sharded.sharded_multi_bfs)):
+        res, secs = _timed(torch, dev, lambda: fn(bcoo, roots, mesh=mesh, mode="tiles"))
+        runs.append({"matrix": "blocked", "mode": "tiles", "app": app, "seconds": secs,
+                     **_check_sharded_fix(f"tiles {app}", res, ref[("blocked", app)], app)})
+    # the 1 << 16 band's answers, which the two-rank phase is held against
+    band16_out = {}
+    for app, fn in (("sssp", lambda: sharded.sharded_sssp(band16, 0, mesh=mesh, mode="band")),
+                    ("frontier_bfs", lambda: frontier.frontier_bfs(band16, 0, mesh=mesh,
+                                                                   budget=512)),
+                    ("frontier_sssp", lambda: frontier.frontier_sssp(band16, 0, mesh=mesh,
+                                                                     budget=512))):
+        res = fn()
+        base = "bfs" if app == "frontier_bfs" else "sssp"
+        _check_sharded_fix(f"band16 {app}", res, ref[("band16", base)], base)
+        band16_out[app] = {"x": res.x.cpu().numpy(), "iterations": res.iterations,
+                           "converged": res.converged,
+                           "aux": None if res.aux is None else res.aux.cpu().numpy()}
+    out["launches"] = dict(LAUNCHES)
+    out["sharded_path_seconds"] = time.perf_counter() - t_path
+    out.update(runs=runs, max_abs_err=errs, band16=band16_out)
+
+    # ---- the band sssp's step costs: sharded band mode against one card
+    # the operands are built before the clocks start (return_solver)
+    steps = {}
+    for label, solve, capped in (
+            ("single_device",
+             apps.sssp(band, root, variant="bsr_band", device=dev, return_solver=True),
+             apps.sssp(band, root, variant="bsr_band", max_iter=BUSY_STEPS, device=dev,
+                       return_solver=True)),
+            ("sharded_band",
+             sharded.sharded_sssp(band, root, mesh=mesh, mode="band", return_solver=True),
+             sharded.sharded_sssp(band, root, mesh=mesh, mode="band", max_iter=BUSY_STEPS,
+                                  return_solver=True))):
+        capped()  # the sharded solver places its shard on its first run
+        res, secs = _timed(torch, dev, solve)
+        host = secs * 1e3 / res.iterations
+        busy = _busy_ms_per_step(torch, dev, capped, BUSY_STEPS)
+        steps[label] = {"steps": res.iterations, "seconds": secs, "host_ms_per_step": host,
+                        "device_busy_ms_per_step": busy,
+                        "device_idle_share": None if busy is None else 1 - busy / host}
+    out["band_sssp_steps"] = steps
+    return out
+
+
+def _sharded_ranks2_rank(mesh, host_copy: bool) -> dict:
+    """One of two gloo ranks sharing cuda:0: the band mode and the frontier
+    on the 1 << 16 band, every exchange copied through the host."""
+    import torch
+
+    from sparseharness_tpu_torch.formats import banded_coo
+    from sparseharness_tpu_torch.ops import LAUNCHES
+    from sparseharness_tpu_torch.parallel import frontier, sharded
+
+    if (mesh.size, mesh.backend, mesh.host_copy) != (2, "gloo", host_copy):
+        raise AssertionError(f"expected two gloo ranks (host copy {host_copy}), got {mesh}")
+    band16 = banded_coo(SELL_BAND_N, BAND, seed=1)
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    out = {"mesh": {"rank": mesh.rank, "size": mesh.size, "backend": mesh.backend,
+                    "device": str(mesh.device), "host_copy": mesh.host_copy}}
+    for app, fn in (("sssp", lambda: sharded.sharded_sssp(band16, 0, mesh=mesh, mode="band")),
+                    ("frontier_bfs", lambda: frontier.frontier_bfs(band16, 0, mesh=mesh,
+                                                                   budget=512)),
+                    ("frontier_sssp", lambda: frontier.frontier_sssp(band16, 0, mesh=mesh,
+                                                                     budget=512))):
+        res, secs = _timed(torch, mesh.device, fn)
+        out[app] = {"x": res.x.cpu().numpy(), "iterations": res.iterations,
+                    "converged": res.converged, "seconds": secs,
+                    "aux": None if res.aux is None else res.aux.cpu().numpy()}
+        if app != "sssp":
+            out[app].update(sent_entries=res.sent_entries, local=res.local,
+                            dense_phase_iters=res.dense_phase_iters)
+    out["launches"] = dict(LAUNCHES)
+    return out
+
+
+def sharded_world1(torch, device: str = "cuda") -> dict:
+    """Phase sharded_world1: the rank's checks raise in the rank, which
+    fails the world and with it this phase."""
+    from sparseharness_tpu_torch.parallel import mesh as mesh_mod, run_world
+
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    backend = mesh_mod.default_backend(torch.device(device))
+    out = run_world(_sharded_world1_rank, 1, device=device, timeout_s=900,
+                    args=(backend,))[0]
+    out["world_seconds"] = time.perf_counter() - t0
+    for kernel in ("staged", "streamed", "sell2", "spmm_tiles"):
+        if device == "cuda" and out["launches"][kernel] <= 0:
+            raise AssertionError(f"the {kernel} kernel never launched on the sharded path")
+    return out
+
+
+def sharded_ranks2_one_card(torch, world1: dict, device: str = "cuda") -> dict:
+    from sparseharness_tpu_torch.parallel import run_world
+
+    t0 = time.perf_counter()
+    ranks = run_world(_sharded_ranks2_rank, 2, backend="gloo", device=device, timeout_s=600,
+                      args=(device == "cuda",))
+    seconds = time.perf_counter() - t0
+    for r in ranks:
+        for app, want in world1["band16"].items():
+            got = r[app]
+            if (got["iterations"], got["converged"]) != (want["iterations"], want["converged"]):
+                raise AssertionError(f"two ranks {app}: {got['iterations']} steps against "
+                                     f"{want['iterations']}")
+            if got["x"].tobytes() != want["x"].tobytes():
+                raise AssertionError(f"two ranks {app}: x differs from world 1's")
+            if want["aux"] is not None and got["aux"].tobytes() != want["aux"].tobytes():
+                raise AssertionError(f"two ranks {app}: levels differ from world 1's")
+    if device == "cuda" and (ranks[0]["launches"]["staged"] <= 0
+                             or ranks[0]["launches"]["sell2"] <= 0):
+        raise AssertionError(f"two ranks: launches {ranks[0]['launches']}")
+    summary = {app: {k: v for k, v in ranks[0][app].items() if k not in ("x", "aux")}
+               for app in world1["band16"]}
+    return {"world_seconds": seconds, "mesh": [r["mesh"] for r in ranks],
+            "exchange": ("gloo, every exchanged buffer copied through the host (the "
+                         "backend's rule for ranks on a card)" if ranks[0]["mesh"]["host_copy"]
+                         else "gloo"),
+            "runs": summary, "launches": [r["launches"] for r in ranks]}
+
+
+def weak_scaling_phase(torch, device: str = "cuda") -> dict:
+    from sparseharness_tpu_torch.harness.scaling import report, weak_scaling_spmv
+
+    pts = weak_scaling_spmv(base_rows=FULL_N, avg_degree=2 * BAND, device_counts=[1],
+                            kernel="band", inner_iters=50, device=device, timeout_s=600)
+    if any(p.efficiency is not None for p in pts):
+        raise AssertionError("one card: the report must give no efficiency")
+    return {"points": [dataclasses.asdict(p) for p in pts],
+            "ms_per_op": [p.seconds_per_op * 1e3 for p in pts], "report": report(pts)}
+
+
+def sharded_cli(torch, d: str, device: str = "cuda") -> dict:
+    """spmv and sssp --mesh 1 --sharded-mode band (JAX's single-device
+    path: --mesh 1 shards nothing), sssp --devices 0 --sharded-mode band
+    (the sharded path at world size 1, one NCCL rank), and spmv --mesh 2,
+    which one card refuses with JAX's error."""
+    import contextlib
+    import io
+
+    from sparseharness_tpu_torch.cli import main as cli
+    from sparseharness_tpu_torch.formats import banded_coo, write_mtx
+
+    path, jsonl = os.path.join(d, "cli_band.mtx"), os.path.join(d, "cli.jsonl")
+    write_mtx(path, banded_coo(CLI_BAND_N, BAND, seed=1))
+    runs = []
+    want = {("spmv", "--mesh 1"): "ell",
+            ("sssp", "--mesh 1 --sharded-mode band"): "sssp:ell",
+            ("sssp", "--devices 0 --sharded-mode band"): "sssp:sharded1:band"}
+    for (app, flags), kernel in want.items():
+        if os.path.exists(jsonl):
+            os.remove(jsonl)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.COMMANDS[app](["-m", path, "-n", "2", "--jsonl", jsonl, "--device", device]
+                                   + flags.split())
+        with open(jsonl) as f:
+            rows = [json.loads(line) for line in f]
+        runs.append({"app": app, "flags": flags, "rc": rc, "seconds": time.perf_counter() - t0,
+                     "kernels": sorted({r["kernel"] for r in rows}),
+                     "correctness": sorted({r["correctness"] for r in rows})})
+        if rc != 0 or runs[-1]["kernels"] != [kernel] or runs[-1]["correctness"] != ["correct"]:
+            raise AssertionError(f"cli {app} {flags}: {runs[-1]}")
+    if device != "cuda":  # gloo ranks on the CPU: no card to refuse
+        return {"runs": runs}
+    try:
+        cli.COMMANDS["spmv"](["-m", path, "-n", "1", "--mesh", "2"])
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("spmv --mesh 2 ran on one card")
+    if refused != f"requested 2 devices, have {torch.cuda.device_count()}":
+        raise AssertionError(f"spmv --mesh 2: {refused!r}")
+    return {"runs": runs, "mesh2_refused": refused}
+
+
 def main() -> int:
     import torch
 
@@ -2322,6 +2749,17 @@ def main() -> int:
         ltimes = sell_kernel_times(torch, sell_prob.operand, sell_coo, lerrs)
         f.update(card=card, nvidia_smi=smi, times=ltimes, max_abs_err=lerrs)
     del sell_prob
+
+    with Phase("sharded_world1") as f:
+        world1 = sharded_world1(torch)
+        f.update(card=card, nvidia_smi=smi,
+                 **{k: v for k, v in world1.items() if k != "band16"})
+    with Phase("sharded_ranks2_one_card") as f:
+        f.update(card=card, nvidia_smi=smi, **sharded_ranks2_one_card(torch, world1))
+    with Phase("weak_scaling") as f:
+        f.update(card=card, nvidia_smi=smi, **weak_scaling_phase(torch))
+    with tempfile.TemporaryDirectory() as cli_dir, Phase("sharded_cli") as f:
+        f.update(card=card, nvidia_smi=smi, **sharded_cli(torch, cli_dir))
 
     f32 = times["float32"]
     replaces = {"staged": "sparseharness_tpu/ops/pallas_bsr_band.py:180",

@@ -17,10 +17,17 @@ just_parser. The flags and their defaults are the JAX commands':
 
 plus ``--device`` (default ``cuda``), the CLI's form of the port's
 ``device=`` keyword: without a card and without ``--device cpu`` a command
-exits nonzero. ``--mesh`` > 1, ``--devices``, ``--frontier`` and a
-``--sharded-mode`` other than ``auto`` are kept so that the flags match
-the JAX commands', and stop with a parser error: the distributed solvers are
-not ported yet.
+exits nonzero.
+
+``--mesh N`` (N > 1), ``--devices i,j`` and ``--frontier`` run the
+row-sharded solvers (``parallel/``) as the JAX commands do: the command
+starts a world of ranks (``parallel/launch.py:run_world``; NCCL, a card a
+rank, with ``--device cuda``, where N above the cards is refused as JAX's
+``make_mesh`` refuses it; N gloo ranks with ``--device cpu``), each rank
+runs the sharded solve, and rank 0 alone prints and writes the records.
+``--sharded-mode`` picks the exchange and local compute (auto, band, sell,
+halo, gather; tiles for --roots), ``--frontier --budget`` the compressed
+all_to_all exchange.
 
 Outputs: a summary on stdout and, with --jsonl / --sql, the records. The
 exit code is 0 when the gold gate passes (or is skipped), else 1.
@@ -38,10 +45,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-
-_NOT_PORTED = ("needs the distributed solvers, which the PyTorch port does not "
-               "have yet")
-
 
 def _common_parser(description: str) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=description)
@@ -64,9 +67,11 @@ def _common_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("-c", "--delta", type=float, default=1e-4)
     p.add_argument("-e", "--experiment-id", default="")
     p.add_argument("--mesh", type=int, default=1,
-                   help=f"number of devices for row-sharded execution; > 1 {_NOT_PORTED}")
+                   help="number of ranks (row-sharded execution if >1)")
     p.add_argument("--devices", default=None,
-                   help=f"comma-separated device indices of the mesh; {_NOT_PORTED}")
+                   help="comma-separated card indices of the ranks, e.g. --devices 2,3; "
+                        "implies the sharded path; --mesh, when also given, must match "
+                        "the list length")
     p.add_argument("--device", default="cuda",
                    help="torch device of the solve (default cuda; 'cpu' runs the "
                         "plain PyTorch versions of the kernels)")
@@ -86,15 +91,65 @@ def _common_parser(description: str) -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_distributed(p: argparse.ArgumentParser, args) -> None:
-    if args.mesh > 1:
-        p.error(f"--mesh {args.mesh} {_NOT_PORTED}")
-    if args.devices:
-        p.error(f"--devices {_NOT_PORTED}")
-    if getattr(args, "frontier", False):
-        p.error(f"--frontier {_NOT_PORTED}")
-    if getattr(args, "sharded_mode", "auto") != "auto":
-        p.error(f"--sharded-mode {args.sharded_mode} {_NOT_PORTED}")
+def _device_idxs(args) -> Optional[list]:
+    s = getattr(args, "devices", None)
+    if not s:
+        return None
+    try:
+        idxs = [int(d) for d in s.split(",") if d.strip() != ""]
+    except ValueError:
+        raise SystemExit(f"--devices: not a comma-separated int list: {s!r}")
+    if not idxs:
+        return None
+    if len(set(idxs)) != len(idxs):
+        raise SystemExit(f"--devices has duplicate indices: {s}")
+    return idxs
+
+
+def _mesh_requested(args) -> bool:
+    """--mesh N > 1 or an explicit --devices list selects the sharded path
+    (one explicit device, --devices 2, is still a selection)."""
+    return args.mesh > 1 or _device_idxs(args) is not None
+
+
+def _launch(command, argv, args, device: torch.device) -> int:
+    """Run ``command(argv)`` on every rank of a world of --mesh (or
+    len(--devices)) ranks; rank 0's exit code. On cards each rank takes
+    its own card over NCCL, and more ranks than cards raise as JAX's
+    make_mesh does."""
+    from sparseharness_tpu_torch.parallel import mesh as mesh_mod
+    from sparseharness_tpu_torch.parallel.launch import run_world
+
+    idxs = _device_idxs(args)
+    if idxs is not None:
+        if device.type == "cuda":
+            bad = [i for i in idxs if i < 0 or i >= mesh_mod.device_count()]
+            if bad:
+                raise SystemExit(f"--devices {bad} out of range (have "
+                                 f"{mesh_mod.device_count()} devices)")
+        if args.mesh > 1 and args.mesh != len(idxs):
+            raise SystemExit(f"--mesh {args.mesh} contradicts --devices (length {len(idxs)})")
+    n = len(idxs) if idxs is not None else args.mesh
+    devices = idxs if device.type == "cuda" else None
+    mesh_mod.rank_devices(n, devices, device=device)  # refuses as JAX's make_mesh
+    return run_world(_rank_command, n, device=device, devices=devices,
+                     args=(command, argv))[0]
+
+
+def _rank_command(mesh, command, argv) -> int:
+    """One rank of a command's world."""
+    return command(argv, mesh=mesh)
+
+
+def _world_time(mesh):
+    """A trial's seconds as the world's slowest rank took them."""
+    from sparseharness_tpu_torch.parallel import comm
+
+    def agree(dt: float) -> float:
+        t = torch.tensor([dt], dtype=torch.float64, device=mesh.device)
+        return float(comm.all_reduce(mesh, t, "max")[0])
+
+    return agree
 
 
 def _device(args) -> torch.device:
@@ -149,11 +204,80 @@ def _emit(records, args) -> None:
                 f.close()
 
 
-def spmv_main(argv: Optional[list] = None) -> int:
+def _sharded_spmv_main(args, coo, mesh) -> int:
+    """One rank of the --mesh SpMV one-shot: rows sharded over the ranks, x
+    all-gathered (parallel.sharded.sharded_spmv), gold-checked on rank 0,
+    the time of a step the slowest rank's, records tagged
+    ``sharded{N}:ell``."""
+    from sparseharness_tpu_torch.gold import Correctness, check_result, spmv_abs_bound, spmv_gold
+    from sparseharness_tpu_torch.harness.stats import BenchRecord, Statistic, median_record
+    from sparseharness_tpu_torch.parallel.sharded import build_sharded_ell, sharded_spmv
+    from sparseharness_tpu_torch.semiring import PLUS_TIMES
+    from sparseharness_tpu_torch.utils.device import device_name
+
+    sr = PLUS_TIMES
+    n, d = coo.shape[0], mesh.size
+    op, _ = build_sharded_ell(coo, sr, d, device=mesh.device)
+    x = np.random.default_rng(0).uniform(0.2, 1.0, coo.shape[1]).astype(np.float32)
+    kernel = f"sharded{d}:ell"
+    out = sharded_spmv(mesh, op, x, sr, n_rows=n).cpu().numpy()
+    correctness = Correctness.NOT_CHECKED
+    if not args.no_gold and mesh.rank == 0:
+        gold = spmv_gold(coo, x, np.zeros(n, np.float32), sr)
+        correctness = check_result(out, gold, delta=args.delta, scale=spmv_abs_bound(coo, x))
+        print(f"{kernel}: gold {correctness.value}")
+
+    # square operands chain x ← A ⊗ x; the time of a step is the best
+    # trial's mean, the slowest rank's
+    k = 32 if mesh.device.type == "cuda" else 2
+    square = coo.shape[1] == n
+    xt = torch.from_numpy(x).to(mesh.device)
+
+    def trial() -> float:
+        t0 = time.perf_counter()
+        c = xt
+        for _ in range(k if square else 1):
+            c = sharded_spmv(mesh, op, c, sr, n_rows=n)
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+        return (time.perf_counter() - t0) / (k if square else 1)
+
+    trial()
+    per_op = min(trial() for _ in range(max(args.trials, 1)))
+    per_op = max(_world_time(mesh)(per_op), 1e-9)
+    records = [BenchRecord(
+        time_ns=per_op * 1e9, correctness=correctness, kernel=kernel, geometry=f"mesh{d}",
+        trial=0, iteration=0, statistic=Statistic.RAW_RESULT,
+        matrix=args.matrix_name or args.matrix, experiment_id=args.experiment_id,
+        device=device_name(mesh.device), nnz=coo.nnz).finalize()]
+    records.append(median_record(records))
+    if mesh.rank == 0:
+        print(f"{kernel}: {per_op * 1e3:.3f} ms/op  {coo.nnz / per_op / 1e9:.3f} Gnnz/s  "
+              f"{correctness.value}")
+        _emit(records, args)
+    return 0 if correctness.value in ("correct", "not_checked") else 1
+
+
+def spmv_main(argv: Optional[list] = None, *, mesh=None) -> int:
+    """The SpMV command; ``mesh`` runs it as that rank of a --mesh world."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     p = _common_parser("semiring SpMV benchmark")
     args = p.parse_args(argv)
-    _refuse_distributed(p, args)
+    if _mesh_requested(args):
+        if args.sweep or args.runfile:
+            p.error("--mesh does not compose with --sweep/--runfile")
+        if args.reorder:
+            p.error("--mesh does not compose with --reorder for spmv")
+        if args.kernel != "ell":
+            # the sharded one-shot runs the sharded ELL path: another -k would
+            # mislabel the result
+            p.error("--mesh spmv runs the sharded ELL path; -k/--kernel must be left at "
+                    "the default 'ell'")
+        if mesh is None:
+            return _launch(spmv_main, argv, args, _device(args))
     coo, device = _setup(args)
+    if mesh is not None:
+        return _sharded_spmv_main(args, coo, mesh)
     if args.reorder:
         # benchmark P·A·Pᵀ: problem, gold and sweep all live in permuted
         # space; the point is the kernel the reordered structure routes to
@@ -242,13 +366,16 @@ def _x0_builder(algo: str):
 
 
 def _fixpoint_main(description, solve, gold_fn, needs_root, argv, exact=False,
-                   kernel_name="fixpoint", sharded=False, frontier=False, algo=None,
-                   reorderable=True, supports_roots=False, add_args=None,
-                   post_check=None, x0_fn=None):
+                   kernel_name="fixpoint", sharded_solve=None, frontier_solve=None,
+                   algo=None, reorderable=True, supports_roots=False, add_args=None,
+                   post_check=None, x0_fn=None, command=None, mesh=None):
     """The shared fixpoint command. ``solve(coo, args, device)`` returns a
-    zero-arg solver; ``sharded`` and ``frontier`` add the JAX commands'
-    --sharded-mode and --frontier/--budget flags, which stop with a parser
-    error until the distributed slice is ported."""
+    zero-arg solver; ``sharded_solve(coo, args, mesh)`` and
+    ``frontier_solve(coo, args, mesh)`` the sharded ones, which add the
+    --sharded-mode and --frontier/--budget flags. A --mesh, --devices or
+    --frontier run starts a world that runs ``command`` on every rank
+    (``mesh`` is the rank's)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     p = _common_parser(description)
     if add_args is not None:
         add_args(p)
@@ -260,18 +387,25 @@ def _fixpoint_main(description, solve, gold_fn, needs_root, argv, exact=False,
     p.add_argument("--max-iter", type=int, default=None)
     p.add_argument("--stepped", action="store_true",
                    help="host-stepped per-iteration timing records")
-    if sharded:
+    if sharded_solve is not None:
         p.add_argument("--sharded-mode", dest="sharded_mode",
                        choices=["auto", "band", "sell", "tiles", "halo", "gather"],
-                       default="auto", help=f"--mesh exchange mode; {_NOT_PORTED}")
-    if frontier:
+                       default="auto",
+                       help="--mesh exchange and local compute: band = the band kernel "
+                            "and the ring halo exchange, sell = the sell2 kernel and an "
+                            "all-gather, tiles = the tile SpMM kernel and an all-gather "
+                            "(batched --roots solves only), halo = the ELL gather and the "
+                            "neighbour window, gather = the ELL gather and an all-gather; "
+                            "auto prefers the first the structure permits")
+    if frontier_solve is not None:
         p.add_argument("--frontier", action="store_true",
-                       help=f"frontier-compressed exchange; {_NOT_PORTED}")
+                       help="frontier-compressed all_to_all exchange: send only the "
+                            "changed (index, value) entries each step instead of the "
+                            "dense all-gather (monotone semirings; composes with --mesh)")
         p.add_argument("--budget", type=int, default=1024,
-                       help="--frontier: max changed entries per (src, dst) pair "
-                            "per iteration")
+                       help="--frontier: max changed entries sent per (src, dst) pair per "
+                            "step; overflow takes a dense all-gather for that step")
     args = p.parse_args(argv)
-    _refuse_distributed(p, args)
     if args.reorder and not reorderable:
         p.error(f"--reorder is not supported for {kernel_name}")
     if getattr(args, "roots", None):
@@ -279,6 +413,18 @@ def _fixpoint_main(description, solve, gold_fn, needs_root, argv, exact=False,
             p.error(f"--roots is not supported for {kernel_name}")
         if args.stepped:
             p.error("--roots is not supported with --stepped")
+    frontier = getattr(args, "frontier", False)
+    if frontier:
+        if getattr(args, "roots", None):
+            p.error("--frontier is single-source (no --roots)")
+        if args.stepped:
+            p.error("--frontier runs the whole-solve loop (no --stepped)")
+        if args.reorder:
+            p.error("--frontier does not compose with --reorder")
+    if not frontier and _mesh_requested(args) and sharded_solve is None:
+        p.error(f"--mesh not supported for {kernel_name}")
+    if mesh is None and (frontier or _mesh_requested(args)):
+        return _launch(command, argv, args, _device(args))
     coo, device = _setup(args)
     from sparseharness_tpu_torch.harness import (
         BenchmarkConfig, benchmark_fixpoint, benchmark_fixpoint_stepped,
@@ -286,26 +432,70 @@ def _fixpoint_main(description, solve, gold_fn, needs_root, argv, exact=False,
 
     config = BenchmarkConfig(trials=args.trials, timeout_s=args.timeout, delta=args.delta,
                              experiment_id=args.experiment_id)
-    gold = None if args.no_gold else gold_fn(coo, args)
+    lead = mesh is None or mesh.rank == 0  # the rank that checks, prints and writes
+    gold = None if args.no_gold or not lead else gold_fn(coo, args)
     x0 = x0_fn(coo, args) if x0_fn is not None else None
-    if args.stepped and algo is not None:
+    profile = _profile_ctx(args, device) if lead else contextlib.nullcontext()
+    if frontier:
+        held = {}
+        solver = frontier_solve(coo, args, mesh)
+
+        def solve_frontier():
+            held["res"] = solver()
+            return held["res"]
+
+        with profile:
+            res = benchmark_fixpoint(
+                solve_frontier, gold=gold, config=config,
+                matrix_name=args.matrix_name or args.matrix,
+                kernel_name=f"{kernel_name}:frontier{args.mesh}", nnz=coo.nnz, exact=exact,
+                x0=x0, world_time=_world_time(mesh))
+        fr = held["res"]
+        # the measured exchange saving rides in every JSONL row
+        for r in res.records:
+            r.kernel = f"{kernel_name}:frontier{args.mesh}:{fr.local}"
+            r.extra = {
+                "frontier_local": fr.local,
+                "sent_entries": fr.sent_entries,
+                "exchanged_bytes": fr.exchanged_bytes(),
+                "allgather_bytes": fr.allgather_bytes(coo.shape[0]),
+                "dense_fallbacks": fr.dense_fallbacks,
+                "dense_phase_iters": fr.dense_phase_iters,
+                "budget": args.budget,
+            }
+        if lead:
+            print(f"frontier[{fr.local}]: {fr.sent_entries} entries "
+                  f"({fr.exchanged_bytes()} B) exchanged vs "
+                  f"{fr.allgather_bytes(coo.shape[0])} B all-gather; "
+                  f"{fr.dense_phase_iters} dense-phase iters, "
+                  f"{fr.dense_fallbacks} post-switch fallbacks")
+    elif mesh is not None:
+        with profile:
+            res = benchmark_fixpoint(
+                sharded_solve(coo, args, mesh), gold=gold, config=config,
+                matrix_name=args.matrix_name or args.matrix,
+                kernel_name=f"{kernel_name}:sharded{mesh.size}:{args.sharded_mode}",
+                nnz=coo.nnz, exact=exact, x0=x0, world_time=_world_time(mesh))
+    elif args.stepped and algo is not None:
         from sparseharness_tpu_torch.algorithms import fixpoint_components
 
         comp = fixpoint_components(algo, coo, root=getattr(args, "root", 0),
                                    variant=args.kernel, max_iter=args.max_iter,
                                    reorder=args.reorder, device=device)
-        with _profile_ctx(args, device):
+        with profile:
             res = benchmark_fixpoint_stepped(
                 comp, gold=gold, config=config,
                 matrix_name=args.matrix_name or args.matrix,
                 kernel_name=f"{kernel_name}:{args.kernel}", exact=exact)
     else:
-        with _profile_ctx(args, device):
+        with profile:
             res = benchmark_fixpoint(
                 solve(coo, args, device), gold=gold, config=config,
                 matrix_name=args.matrix_name or args.matrix,
                 kernel_name=f"{kernel_name}:{args.kernel}", nnz=coo.nnz,
                 exact=exact, x0=x0)
+    if not lead:
+        return 0
     print(f"{res.summary()} | {res.iterations} iterations")
     _emit(res.records, args)
     rc = 0 if res.correctness.value in ("correct", "not_checked") else 1
@@ -317,9 +507,12 @@ def _fixpoint_main(description, solve, gold_fn, needs_root, argv, exact=False,
     return rc
 
 
-def sssp_main(argv: Optional[list] = None) -> int:
+def sssp_main(argv: Optional[list] = None, *, mesh=None) -> int:
     from sparseharness_tpu_torch.algorithms import multi_sssp, sssp
     from sparseharness_tpu_torch.gold import sssp_gold
+    from sparseharness_tpu_torch.parallel import (
+        frontier_sssp, sharded_multi_sssp, sharded_sssp,
+    )
 
     def _solve(coo, a, device):
         if a.roots:
@@ -333,16 +526,33 @@ def sssp_main(argv: Optional[list] = None) -> int:
             return np.stack([sssp_gold(coo, r) for r in _roots_list(a)], axis=1)
         return sssp_gold(coo, a.root)
 
+    def _sharded(coo, a, m):
+        if a.roots:
+            return sharded_multi_sssp(coo, _roots_list(a), mesh=m, max_iter=a.max_iter,
+                                      reorder=a.reorder, mode=a.sharded_mode,
+                                      return_solver=True)
+        return sharded_sssp(coo, a.root, mesh=m, max_iter=a.max_iter, reorder=a.reorder,
+                            mode=a.sharded_mode, return_solver=True)
+
+    def _frontier(coo, a, m):
+        return frontier_sssp(coo, a.root, mesh=m, budget=a.budget, max_iter=a.max_iter,
+                             return_solver=True)
+
     return _fixpoint_main(
-        "SSSP min-plus fixpoint; --roots batches sources into one SpMM fixpoint",
+        "SSSP min-plus fixpoint; --roots batches sources into one SpMM fixpoint "
+        "(composes with --mesh: row-sharded SpMM)",
         _solve, _gold, needs_root=True, argv=argv, kernel_name="sssp", algo="sssp",
-        x0_fn=_x0_builder("sssp"), supports_roots=True, sharded=True, frontier=True,
+        x0_fn=_x0_builder("sssp"), supports_roots=True, sharded_solve=_sharded,
+        frontier_solve=_frontier, command=sssp_main, mesh=mesh,
     )
 
 
-def bfs_main(argv: Optional[list] = None) -> int:
+def bfs_main(argv: Optional[list] = None, *, mesh=None) -> int:
     from sparseharness_tpu_torch.algorithms import bfs, multi_bfs
     from sparseharness_tpu_torch.gold import bfs_reach_gold
+    from sparseharness_tpu_torch.parallel import (
+        frontier_bfs, sharded_bfs, sharded_multi_bfs,
+    )
 
     def _solve(coo, a, device):
         if a.roots:
@@ -356,17 +566,31 @@ def bfs_main(argv: Optional[list] = None) -> int:
             return np.stack([bfs_reach_gold(coo, r) for r in _roots_list(a)], axis=1)
         return bfs_reach_gold(coo, a.root)
 
+    def _sharded(coo, a, m):
+        if a.roots:
+            return sharded_multi_bfs(coo, _roots_list(a), mesh=m, max_iter=a.max_iter,
+                                     reorder=a.reorder, mode=a.sharded_mode,
+                                     return_solver=True)
+        return sharded_bfs(coo, a.root, mesh=m, max_iter=a.max_iter, reorder=a.reorder,
+                           mode=a.sharded_mode, return_solver=True)
+
+    def _frontier(coo, a, m):
+        return frontier_bfs(coo, a.root, mesh=m, budget=a.budget, max_iter=a.max_iter,
+                            return_solver=True)
+
     return _fixpoint_main(
-        "BFS or/and fixpoint; --roots batches sources into one SpMM fixpoint",
+        "BFS or/and fixpoint; --roots batches sources into one SpMM fixpoint "
+        "(composes with --mesh: row-sharded SpMM)",
         _solve, _gold, needs_root=True, argv=argv, exact=True, kernel_name="bfs",
-        algo="bfs", x0_fn=_x0_builder("bfs"), supports_roots=True, sharded=True,
-        frontier=True,
+        algo="bfs", x0_fn=_x0_builder("bfs"), supports_roots=True, sharded_solve=_sharded,
+        frontier_solve=_frontier, command=bfs_main, mesh=mesh,
     )
 
 
-def pr_main(argv: Optional[list] = None) -> int:
+def pr_main(argv: Optional[list] = None, *, mesh=None) -> int:
     from sparseharness_tpu_torch.algorithms import pagerank
     from sparseharness_tpu_torch.gold import pagerank_gold
+    from sparseharness_tpu_torch.parallel import sharded_pagerank
 
     return _fixpoint_main(
         "PageRank power iteration",
@@ -375,7 +599,11 @@ def pr_main(argv: Optional[list] = None) -> int:
                                         device=device),
         lambda coo, a: pagerank_gold(coo),
         needs_root=False, argv=argv, kernel_name="pagerank", algo="pagerank",
-        x0_fn=_x0_builder("pagerank"), sharded=True,
+        x0_fn=_x0_builder("pagerank"),
+        sharded_solve=lambda coo, a, m: sharded_pagerank(
+            coo, mesh=m, max_iter=a.max_iter or 1000, reorder=a.reorder,
+            mode=a.sharded_mode, return_solver=True),
+        command=pr_main, mesh=mesh,
     )
 
 
@@ -387,13 +615,14 @@ def _canon_partition(labels: np.ndarray) -> np.ndarray:
     return rank[inv].astype(np.int32)
 
 
-def scc_main(argv: Optional[list] = None) -> int:
+def scc_main(argv: Optional[list] = None, *, mesh=None) -> int:
     """SCC command: forward max-label propagation by default; --full runs
     the forward-and-backward SCC and checks the partition against the
     classical gold."""
     from sparseharness_tpu_torch.algorithms.apps import _label_propagate, scc
     from sparseharness_tpu_torch.gold import scc_gold, scc_labels_gold
     from sparseharness_tpu_torch.ops import Geometry
+    from sparseharness_tpu_torch.parallel import sharded_scc, sharded_scc_forward
 
     def _full_result(labels, fwd, bwd):
         return types.SimpleNamespace(
@@ -410,6 +639,13 @@ def scc_main(argv: Optional[list] = None) -> int:
         return _label_propagate(coo, a.kernel, Geometry(), a.max_iter, return_solver=True,
                                 device=device)
 
+    def _sharded(coo, a, m):
+        if a.full:
+            return lambda: _full_result(*sharded_scc(coo, mesh=m, max_iter=a.max_iter,
+                                                     mode=a.sharded_mode))
+        return sharded_scc_forward(coo, mesh=m, max_iter=a.max_iter, mode=a.sharded_mode,
+                                   return_solver=True)
+
     def _gold(coo, a):
         if a.full:
             return _canon_partition(scc_gold(coo))
@@ -421,7 +657,7 @@ def scc_main(argv: Optional[list] = None) -> int:
         _solve, _gold, needs_root=False, argv=argv, exact=True, kernel_name="scc",
         algo="scc", x0_fn=_x0_builder("scc"),
         reorderable=False,  # raw labels depend on the numbering
-        sharded=True,
+        sharded_solve=_sharded, command=scc_main, mesh=mesh,
         add_args=lambda p: p.add_argument(
             "--full", action="store_true",
             help="full SCC: forward-and-backward label propagation intersection"),
@@ -438,12 +674,13 @@ def _sign_canon(x: np.ndarray) -> np.ndarray:
     return -x if x[i] < 0 else x
 
 
-def eigenvector_main(argv: Optional[list] = None) -> int:
+def eigenvector_main(argv: Optional[list] = None, *, mesh=None) -> int:
     """Eigenvector command: the sign-canonical solve against
     eigenvector_gold, then a Rayleigh-residual post-check
     ||Ax − λx|| ≤ tol·||A||_F, so a wrong result exits nonzero."""
     from sparseharness_tpu_torch.algorithms import eigenvector
     from sparseharness_tpu_torch.gold import eigenvector_gold
+    from sparseharness_tpu_torch.parallel import sharded_eigenvector
 
     held = {}
 
@@ -457,6 +694,11 @@ def eigenvector_main(argv: Optional[list] = None) -> int:
         s = eigenvector(coo, variant=a.kernel, max_iter=a.max_iter or 1000,
                         reorder=a.reorder, return_solver=True, device=device)
         return lambda: _canon_res(s()[0])
+
+    def _sharded(coo, a, m):
+        s = sharded_eigenvector(coo, mesh=m, max_iter=a.max_iter or 1000, reorder=a.reorder,
+                                mode=a.sharded_mode, return_solver=True)
+        return lambda: _canon_res(s())
 
     def _post(coo, a, res):
         x = held.get("x")
@@ -483,11 +725,12 @@ def eigenvector_main(argv: Optional[list] = None) -> int:
         "canonicalisation and a Rayleigh residual",
         _solve, lambda coo, a: _sign_canon(eigenvector_gold(coo)),
         needs_root=False, argv=argv, kernel_name="eigenvector", algo="eigenvector",
-        sharded=True, post_check=_post, x0_fn=_x0_builder("eigenvector"),
+        sharded_solve=_sharded, post_check=_post, x0_fn=_x0_builder("eigenvector"),
+        command=eigenvector_main, mesh=mesh,
     )
 
 
-def cc_main(argv: Optional[list] = None) -> int:
+def cc_main(argv: Optional[list] = None, *, mesh=None) -> int:
     from sparseharness_tpu_torch.algorithms import connected_components
     from sparseharness_tpu_torch.gold import connected_components_gold
 
@@ -498,11 +741,11 @@ def cc_main(argv: Optional[list] = None) -> int:
             return_solver=True, device=device),
         lambda coo, a: connected_components_gold(coo),
         needs_root=False, argv=argv, exact=True, kernel_name="cc",
-        x0_fn=_x0_builder("cc"),
+        x0_fn=_x0_builder("cc"), command=cc_main, mesh=mesh,
     )
 
 
-def widest_path_main(argv: Optional[list] = None) -> int:
+def widest_path_main(argv: Optional[list] = None, *, mesh=None) -> int:
     from sparseharness_tpu_torch.algorithms import widest_path
     from sparseharness_tpu_torch.gold import widest_path_gold
 
@@ -513,7 +756,7 @@ def widest_path_main(argv: Optional[list] = None) -> int:
             return_solver=True, device=device),
         lambda coo, a: widest_path_gold(coo, a.root),
         needs_root=True, argv=argv, exact=True, kernel_name="widest_path",
-        x0_fn=_x0_builder("widest_path"),
+        x0_fn=_x0_builder("widest_path"), command=widest_path_main, mesh=mesh,
     )
 
 

@@ -25,3 +25,8 @@ from sparseharness_tpu_torch.harness.sweep import (  # noqa: F401
     load_runfile,
     run_sweep,
 )
+from sparseharness_tpu_torch.harness.scaling import (  # noqa: F401
+    ScalePoint,
+    report as scaling_report,
+    weak_scaling_spmv,
+)

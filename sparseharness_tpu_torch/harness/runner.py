@@ -253,6 +253,7 @@ def benchmark_fixpoint(
     nnz: int = 0,
     exact: bool = False,
     x0: Optional[np.ndarray] = None,
+    world_time: Optional[Callable[[float], float]] = None,
 ) -> BenchmarkResult:
     """Benchmark a whole iterate-to-fixpoint solve: each trial runs the full
     fixpoint, timed on the host clock up to a device synchronise; the
@@ -260,7 +261,9 @@ def benchmark_fixpoint(
 
     ``x0``, when given, enables the liveness check: convergence at the
     first step with x unchanged means the step almost certainly did
-    nothing."""
+    nothing. ``world_time``, for a solve that every rank of a world runs,
+    maps a rank's trial seconds to the world's (their maximum), so that
+    every rank records the same time and stops after the same trial."""
     with ScopedTimer("warmup", "benchmark_fixpoint"):
         res = solve_fn()
     device = res.x.device
@@ -288,6 +291,8 @@ def benchmark_fixpoint(
         solve_fn()
         _sync(device)
         dt = time.perf_counter() - t0
+        if world_time is not None:
+            dt = world_time(dt)
         report_timing("executeRun", "benchmark_fixpoint", dt * 1e3)
         best = min(best, dt)
         records.append(BenchRecord(

@@ -616,3 +616,82 @@ def test_sell2_plan_same_on_card_and_cpu(cuda):
             assert a.keys() == b.keys()
             for k in a:
                 np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+# ------------------------------------------------- the sharded path on a card
+
+SHARDED_EXACT = [n for n in sorted(REGISTRY) if n != "plus_times"]
+
+
+def _sharded_band_cases():
+    """(name, windowed) → (Call of the world-1 sharded band SpMV, the
+    operand's matrix, x)."""
+    from sparseharness_tpu_torch.parallel import Call, sharded_band
+
+    cases = {}
+    for name in SHARDED_EXACT:
+        sr = get_semiring(name)
+        coo = banded_coo(1 << 14, 63, seed=1)
+        if sr.dtype == torch.int32:
+            coo = coo.with_values((np.abs(coo.vals * 100).astype(np.int32) % 50 + 1))
+        op = sharded_band.build_sharded_band(coo, sr, 1, device="cpu")[0]
+        x = _x(sr, coo.shape[1], seed=7)
+        for windowed in (None, True):
+            cases[(name, windowed)] = (Call(sharded_band.sharded_spmv_band, dict(
+                op=dataclasses.replace(op, windowed=windowed), x=x, sr=sr,
+                n_rows=coo.shape[0])), coo, x)
+    return cases
+
+
+@pytest.fixture(scope="module")
+def sharded_band_world1():
+    """Every case's dp from one NCCL world of one rank on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from sparseharness_tpu_torch.parallel import run_calls, run_world
+
+    cases = _sharded_band_cases()
+    keys = sorted(cases, key=str)
+    out = run_world(run_calls, 1, device="cuda", args=([cases[k][0] for k in keys],))[0]
+    return cases, dict(zip(keys, out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("windowed", [None, True], ids=["rule", "streamed"])
+@pytest.mark.parametrize("name", SHARDED_EXACT)
+def test_sharded_band_dp_world1_matches_single_device(name, windowed, sharded_band_world1,
+                                                      cuda):
+    """The band mode at world size 1 (head, interior and tail launches with
+    their own span tables) gives the single-device kernel's dp bit for
+    bit."""
+    cases, got = sharded_band_world1
+    _, coo, x = cases[(name, windowed)]
+    sr = get_semiring(name)
+    op = bsr_band.build_bsr_band(coo, sr, device=cuda)
+    ref = spmv(op, x.to(cuda), sr=sr, variant="bsr_band", n_rows=coo.shape[0]).cpu().numpy()
+    dp = got[(name, windowed)]
+    assert dp.dtype == ref.dtype and dp.shape == ref.shape
+    np.testing.assert_array_equal(dp, ref)
+
+
+@pytest.mark.cuda
+def test_gloo_two_ranks_share_one_card(cuda):
+    """Two ranks on one card over gloo (their exchanges copied through the
+    host): the band mode and the frontier agree with the single-device
+    solves."""
+    from sparseharness_tpu_torch.algorithms import bfs, sssp
+    from sparseharness_tpu_torch.parallel import Call, run_calls, run_world
+    from sparseharness_tpu_torch.parallel import frontier, sharded
+
+    band = banded_coo(1 << 12, 63, seed=1)
+    out = run_world(run_calls, 2, backend="gloo", device="cuda", args=([
+        Call(sharded.sharded_sssp, dict(coo=band, root=0, mode="band")),
+        Call(frontier.frontier_bfs, dict(coo=band, root=0, budget=512))],))
+    s, b = sssp(band, 0, variant="bsr_band", device=cuda), bfs(band, 0, device=cuda)
+    for rank in out:
+        got_s, got_b = rank
+        np.testing.assert_array_equal(got_s.x, s.x.cpu().numpy())
+        assert (got_s.iterations, got_s.converged) == (s.iterations, s.converged)
+        np.testing.assert_array_equal(got_b.x, b.x.cpu().numpy())
+        np.testing.assert_array_equal(got_b.aux, b.aux.cpu().numpy())
+        assert (got_b.iterations, got_b.converged) == (b.iterations, b.converged)

@@ -18,9 +18,13 @@ from sparseharness_tpu_torch.algorithms import (
     bfs, connected_components, eigenvector, fixpoint_components, make_spmv_problem, multi_bfs,
     multi_sssp, pagerank, scc, sssp, widest_path,
 )
+from sparseharness_tpu_torch import parallel
 from sparseharness_tpu_torch.cli import main as cli
 from sparseharness_tpu_torch.formats import banded_coo
+from sparseharness_tpu_torch.harness.scaling import weak_scaling_spmv
 from sparseharness_tpu_torch.ops import build_operand
+from sparseharness_tpu_torch.parallel.sharded_sell import build_sharded_sell
+from sparseharness_tpu_torch.parallel.sharded_spmm import build_sharded_spmm_tiles
 from sparseharness_tpu_torch.semiring import PLUS_TIMES
 
 REPO = Path(__file__).resolve().parents[1]
@@ -54,7 +58,8 @@ def test_importing_every_module_loads_no_jax():
 def test_no_source_names_jax():
     files = list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) >= 20
-    for module in ("ops/sell.py", "cli/main.py", "cli/__main__.py", "harness/sweep.py"):
+    for module in ("ops/sell.py", "cli/main.py", "cli/__main__.py", "harness/sweep.py",
+                   "parallel/sharded.py", "parallel/frontier.py", "harness/scaling.py"):
         assert PKG / module in files
     for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
@@ -84,10 +89,30 @@ def test_no_source_names_jax():
     lambda coo: scc(coo),
     lambda coo: eigenvector(coo),
     lambda coo: fixpoint_components("scc", coo),
+    lambda coo: parallel.make_mesh(),
+    lambda coo: parallel.run_world(parallel.run_calls, 2, args=([],)),
+    lambda coo: parallel.sharded_sssp(coo, 0),
+    lambda coo: parallel.sharded_bfs(coo, 0, mode="band"),
+    lambda coo: parallel.sharded_pagerank(coo),
+    lambda coo: parallel.sharded_eigenvector(coo),
+    lambda coo: parallel.sharded_scc(coo),
+    lambda coo: parallel.sharded_multi_sssp(coo, [0, 3]),
+    lambda coo: parallel.frontier_sssp(coo, 0),
+    lambda coo: parallel.frontier_bfs(coo, 0),
+    lambda coo: parallel.build_sharded_ell(coo, PLUS_TIMES, 2),
+    lambda coo: parallel.build_sharded_ell_halo(coo, PLUS_TIMES, 2),
+    lambda coo: parallel.build_sharded_band(coo, PLUS_TIMES, 2),
+    lambda coo: build_sharded_sell(coo, PLUS_TIMES, 2),
+    lambda coo: build_sharded_spmm_tiles(coo, PLUS_TIMES, 2),
+    lambda coo: weak_scaling_spmv(base_rows=64, device_counts=[1]),
 ], ids=["build_operand", "make_spmv_problem", "sssp", "bfs", "pagerank",
         "connected_components", "widest_path", "build_sell2", "multi_sssp", "multi_bfs",
         "sssp_rcm", "multi_sssp_rcm", "build_sell", "scc", "eigenvector",
-        "fixpoint_components"])
+        "fixpoint_components", "make_mesh", "run_world", "sharded_sssp", "sharded_bfs",
+        "sharded_pagerank", "sharded_eigenvector", "sharded_scc", "sharded_multi_sssp",
+        "frontier_sssp", "frontier_bfs", "build_sharded_ell", "build_sharded_ell_halo",
+        "build_sharded_band", "build_sharded_sell", "build_sharded_spmm_tiles",
+        "weak_scaling_spmv"])
 def test_entry_points_raise_without_a_card(entry, monkeypatch):
     """With no card and no explicit device an entry point raises; it never
     falls back to the CPU on its own."""
@@ -129,5 +154,17 @@ def test_chip_smoke_fails_alone(tmp_path):
 def test_every_module_is_a_port_module():
     names = {m.name for m in pkgutil.walk_packages([str(PKG)])}
     for expected in ("formats", "semiring", "ops", "gold", "harness", "algorithms", "utils",
-                     "cli"):
+                     "cli", "parallel"):
         assert expected in names
+
+
+def test_every_jax_module_has_a_port():
+    """The port has a module for each of the JAX package's: the same path,
+    with pallas_ dropped and jnp_ops as torch_ops."""
+    jax_pkg = REPO / "sparseharness_tpu"
+
+    def modules(root):
+        return {p.relative_to(root).with_suffix("").as_posix() for p in root.rglob("*.py")}
+
+    wanted = {m.replace("pallas_", "").replace("jnp_ops", "torch_ops") for m in modules(jax_pkg)}
+    assert not wanted - modules(PKG)
