@@ -107,9 +107,11 @@ result. Phases:
    values, beside the every-slot layout bound; the units the operations
    are counted at), and on the blocked matrix the X bytes the kernel
    reads by its design;
-18. the sell kernels (the fused depth-0 kernel and the gather-reduce level)
+18. the sell kernels (the fused depth-0 kernel and the level kernel)
    against their plain versions, the fused kernel alone against
-   fused_plain and the whole dp against dp_sell_plain: all seven semirings
+   fused_plain, the level kernel alone against its model levels_plain
+   (slabs as built and every slab on the work path) and the whole dp
+   against dp_sell_plain: all seven semirings
    on the matrices of tests/test_torch_sell.py
    (power_law_coo(1500, 9000, seed=4), a 400-entry hub row, two or more
    slabs at slab_nnz=8000, empty rows and a duplicate) and the gate's
@@ -122,7 +124,7 @@ result. Phases:
    through make_spmv_problem and benchmark_spmv with variant="sell",
    gold-gated in f32, with the seconds of its NumPy build;
 20. sssp and bfs with variant="sell" on banded_coo(1 << 16, 63, seed=1),
-   one sell_fused launch a step, certified as in phase 3;
+   one sell_fused and one sell_level launch a step, certified as in phase 3;
 21. the CLI: the 1 << 16 band and the gate's matrix written with write_mtx
    into a temporary directory, then the nine commands run in process as
    ``python -m sparseharness_tpu_torch.cli <app>`` runs them (spmv and sssp
@@ -141,13 +143,16 @@ result. Phases:
    ways, the same indices and values within rtol 1e-6; each with both
    times (the kernel launches here are outside every counted run);
 23. sell kernel times at the 1 << 18 band: the whole dp, the fused
-   depth-0 launch alone and the later levels alone (median of five 20-call
+   depth-0 launch alone and the level launch alone (median of five 20-call
    windows of CUDA events), the plain versions, torch.mv on a CSR tensor of
    the same matrix, the bounds and the bytes each moves by its design; the
-   fused launch's level-0 rows and the dp held against the plain versions
-   bit for bit; torch.profiler's device ms a launch of each sell kernel
-   inside the dp, which the kernels line takes for the later levels (their
-   CUDA-event time is the host's enqueue);
+   fused launch's level-0 rows, the level launch's dp and the whole dp held
+   against the plain versions bit for bit; torch.profiler's device ms a
+   launch of each sell kernel inside the dp (as built and with every slab
+   on the level launch's work path), which the kernels line takes for the
+   level launch (its CUDA-event time is the host's enqueue); a `spmv` call
+   with variant="sell": one fused and one level launch, its ms and the
+   host's enqueue ms;
 24. sharded_world1: the row-sharded solvers (parallel/) in a world of one
    NCCL rank on the card, started by parallel.launch.run_world. The rank
    first runs the single-device port, then, with the launch counters reset
@@ -1179,6 +1184,56 @@ def stage_ms(torch, fn, pattern: str, n: int = 20) -> dict:
     return {k: {"ms": us / count / 1e3, "launches": count} for k, (us, count) in totals.items()}
 
 
+def kernel_spans(torch, fn, n: int = 20) -> list:
+    """[(kernel name, start us, end us)] of the device kernels of n calls of
+    fn, from torch.profiler's trace, in start order."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    return sorted(((e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in events if e.get("cat") == "kernel" and e.get("ph") == "X"),
+                  key=lambda sp: sp[1])
+
+
+def call_metrics(spans, first: str) -> dict:
+    """Medians over the calls in ``spans`` (kernel_spans): a call is a
+    launch whose name holds ``first`` and the kernels after it. The first
+    launch's ms, the later kernels' span (from their first start to their
+    last end), how far they end past the first launch's end (``tail_ms``:
+    what they add to a call), the gap to the next call's first launch, and
+    the call from one first launch's start to the next one's. Empty when
+    no call has a later kernel."""
+    heads = [i for i, sp in enumerate(spans) if first in sp[0]]
+    rows = {"first_ms": [], "rest_ms": [], "tail_ms": [], "gap_ms": [], "call_ms": []}
+    for a, b in zip(heads, heads[1:] + [len(spans)]):
+        rest = spans[a + 1:b]
+        if not rest:
+            continue
+        end = max(sp[2] for sp in rest)
+        rows["first_ms"].append((spans[a][2] - spans[a][1]) / 1e3)
+        rows["rest_ms"].append((end - min(sp[1] for sp in rest)) / 1e3)
+        rows["tail_ms"].append((end - spans[a][2]) / 1e3)
+        if b < len(spans):
+            rows["gap_ms"].append((spans[b][1] - end) / 1e3)
+            rows["call_ms"].append((spans[b][1] - spans[a][1]) / 1e3)
+    return {k: float(np.median(v)) for k, v in rows.items() if v}
+
+
+def call_trace(torch, fn, first: str, n: int = 20) -> dict:
+    """call_metrics of n calls of fn."""
+    return call_metrics(kernel_spans(torch, fn, n), first)
+
+
 # ------------------------------------------------------------------ sell
 
 SELL_N = 1 << 18       # the widest x that sell's XROWS_MAX admits: 262,144 columns
@@ -1203,10 +1258,13 @@ def sell_cases(torch):
 
 
 def sell_vs_plain(torch, coo, kw, names, errs) -> int:
-    """The fused depth-0 kernel alone against fused_plain, and both sell
-    kernels (one sell_dp_cuda call) against dp_sell_plain, on one matrix:
-    bit for bit for every semiring, plus_times included, and the same bits
-    on a second call. Returns the number of comparisons."""
+    """The fused depth-0 kernel alone against fused_plain, the level kernel
+    alone (from fused_plain's level-0 rows) against its model levels_plain
+    with the operand's slabs as built, with the slabs of more than 500
+    rows on the work path (a launch of both paths where the matrix has
+    one) and with every slab on the work path, and both sell kernels (one sell_dp_cuda call) against dp_sell_plain, on
+    one matrix: bit for bit for every semiring, plus_times included, and
+    the same bits on a second call. Returns the number of comparisons."""
     from sparseharness_tpu_torch.ops import sell
     from sparseharness_tpu_torch.semiring import get_semiring
 
@@ -1223,6 +1281,16 @@ def sell_vs_plain(torch, coo, kw, names, errs) -> int:
         for label, got0, ref0 in (("work", work, work_ref), ("dp", dp, dp_ref)):
             check_kernel(torch, f"sell fused {name} ({label})", got0.view(torch.int32),
                          ref0.view(torch.int32), None)
+        for path, lop in (("built", op), ("split at 500 rows", sell.relevel(op, 500)),
+                          ("work path", sell.relevel(op, 0))):
+            work, dp = sell.fused_plain(lop, x2d, sr)
+            lwork, ldp = work.clone(), dp.clone()
+            sell.levels_cuda(lop, sr, work, dp)
+            sell.levels_plain(lop, sr, lwork, ldp)
+            for label, got0, ref0 in (("work", work, lwork), ("dp", dp, ldp)):
+                errs["sell_level"] = max(errs["sell_level"], check_kernel(
+                    torch, f"sell level {name} {path} ({label})", got0.view(torch.int32),
+                    ref0.view(torch.int32), None))
         got = sell.sell_dp_cuda(op, x2d, sr)
         check_same_bits(torch, f"sell {name}", got, sell.sell_dp_cuda(op, x2d, sr))
         ref = sell.dp_sell_plain(op, x, sr, n_rows=m.shape[0])
@@ -1235,8 +1303,8 @@ def sell_vs_plain(torch, coo, kw, names, errs) -> int:
         err = check_kernel(torch, f"sell {name}", got, ref, None)
         errs["sell_fused"] = max(errs["sell_fused"], err)
         errs["sell_level"] = max(errs["sell_level"], err)
-        del op, x2d, work, dp, work_ref, dp_ref
-    return 2 * len(names)
+        del op, x2d, work, dp, work_ref, dp_ref, lwork, ldp
+    return 5 * len(names)
 
 
 def sell_main_path(torch, coo, out):
@@ -1279,7 +1347,8 @@ def sell_main_path(torch, coo, out):
 
 def sell_fixpoints(torch, band, out) -> None:
     """sssp and bfs with variant="sell" on the 1 << 16 band: one sell_fused
-    launch a step. Certificates as phase 3's, with the plain band dp."""
+    and one sell_level launch a step. Certificates as phase 3's, with the
+    plain band dp."""
     from sparseharness_tpu_torch.algorithms import bfs, sssp
     from sparseharness_tpu_torch.ops import LAUNCHES, build_operand, dp_bsr_band_plain, fold_dp
     from sparseharness_tpu_torch.semiring import MIN_PLUS
@@ -1287,14 +1356,15 @@ def sell_fixpoints(torch, band, out) -> None:
     n = band.shape[0]
 
     def run(app):
-        before = LAUNCHES["sell_fused"]
+        before = dict(LAUNCHES)
         t0 = time.perf_counter()
         r = app(band, 0, variant="sell")
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        if LAUNCHES["sell_fused"] - before != r.iterations:
-            raise AssertionError(f"{app.__name__}: {LAUNCHES['sell_fused'] - before} sell "
-                                 f"fused launches for {r.iterations} steps")
+        for kernel in ("sell_fused", "sell_level"):
+            if LAUNCHES[kernel] - before[kernel] != r.iterations:
+                raise AssertionError(f"{app.__name__}: {LAUNCHES[kernel] - before[kernel]} "
+                                     f"{kernel} launches for {r.iterations} steps")
         return r, dt
 
     r, dt = run(sssp)
@@ -1517,18 +1587,27 @@ def native_host(torch, rcoo, band, band_path) -> dict:
 
 def sell_kernel_times(torch, op, coo, errs) -> dict:
     """The sell kernels at the 1 << 18 band: the whole dp, the fused depth-0
-    launch alone and the later levels alone (CUDA events), their plain
+    launch alone and the level launch alone (CUDA events), their plain
     versions, torch.mv on a CSR tensor of the same matrix, the bounds and
     the bytes each moves by its design. Whole dp: the operand's arrays, x
     and the output (variant_bytes), 2 ops per nonzero. The fused launch:
     its level-0 idx rows, lanesel, vals, blocksel and x in, the level-0
     rows out (fused_traffic), one ⊗ per nonzero and one ⊕ per nonzero but
-    the first of each level-0 output. The later levels: the level-0 rows
-    and their idx arrays in, the dp out, one ⊕ per valid idx slot past a
-    run's first. The fused launch's level-0 rows and the dp are held
-    against the plain versions bit for bit first."""
+    the first of each level-0 output. The level launch (level_traffic):
+    the level-0 rows and the later levels' idx region rows in, the final
+    rows of the slabs with a later level out, one ⊕ per valid idx slot
+    past a run's first. The fused launch's level-0 rows, the
+    level launch's dp and the whole dp are held against the plain versions
+    bit for bit first. Then torch.profiler's device ms a launch of each
+    kernel inside the dp (the level launch's span there starts while the
+    fused launch drains, so it holds its wait), the level launch alone
+    (back to back: its own device ms, which the kernels line takes), the
+    dp's trace (call_trace: how far the level launch ends past the fused
+    launch's end), each also with every slab on the level launch's work
+    path, and a `spmv` call with variant="sell": its ms, the host's enqueue
+    ms and its launches."""
     from sparseharness_tpu_torch.harness import device_hbm_bandwidth, variant_bytes
-    from sparseharness_tpu_torch.ops import sell
+    from sparseharness_tpu_torch.ops import LAUNCHES, sell, spmv
     from sparseharness_tpu_torch.semiring import PLUS_TIMES
 
     bw = device_hbm_bandwidth(torch.cuda.get_device_name(0))
@@ -1542,26 +1621,17 @@ def sell_kernel_times(torch, op, coo, errs) -> dict:
     errs["sell_fused"] = max(errs["sell_fused"], check_kernel(
         torch, "sell fused launch at full width", work, work_ref, None), check_kernel(
         torch, "sell fused launch at full width (dp)", dp, dp_ref, None))
+    sell.levels_plain(op, sr, work_ref, dp_ref)
     sell.levels_cuda(op, sr, work, dp)
     errs["sell_level"] = max(errs["sell_level"], check_kernel(
+        torch, "sell level launch at full width", dp, dp_ref, None), check_kernel(
         torch, "sell dp at full width", dp, sell.dp_sell_plain(op, x, sr, n_rows=n), None))
     del work_ref, dp_ref
 
-    # the later levels' inputs: the level-0 rows and their idx arrays; their
-    # operations: one ⊕ per valid idx slot past each output's first
-    l0_rows = sum(lay.levels[0].d_out for lay in op.layouts if not lay.levels[0].final)
-    later_idx, later_ops = 0, 0
-    for slab, lay in zip(op.slabs, op.layouts):
-        for li in range(1, len(lay.levels)):
-            arr = slab[f"idx{li}"].cpu().numpy()
-            later_idx += arr.shape[0]
-            for (w, s0, s1) in lay.levels[li].regions:
-                valid = arr[s0:s1] < lay.levels[li - 1].d_out
-                later_ops += int(valid.sum()) - int(valid.reshape(-1, w, 128).any(1).sum())
-    level_in = l0_rows * 128 * 4 + later_idx * 128 * 4
     traffic = sell.fused_traffic(op)
     fused_ops = 2 * coo.nnz - traffic["live_outputs"]
-
+    levels = sell.level_traffic(op)
+    work_op = sell.relevel(op, 0)
     level0 = [sell.level_plain(sell.phase_a_plain(slab, x2d, sr), slab["idx0"],
                                lay.levels[0], sr) for slab, lay in zip(op.slabs, op.layouts)]
 
@@ -1570,12 +1640,17 @@ def sell_kernel_times(torch, op, coo, errs) -> dict:
             for li in range(1, len(lay.levels)):
                 src = sell.level_plain(src, slab[f"idx{li}"], lay.levels[li], sr)
 
+    before = dict(LAUNCHES)
+    spmv(op, x, sr=sr, variant="sell", n_rows=n)
+    torch.cuda.synchronize()
+    per_call = {k: v - before[k] for k, v in LAUNCHES.items() if v != before[k]}
+    if per_call != {"sell_fused": 1, "sell_level": 1}:
+        raise AssertionError(f"a sell spmv call launched {per_call}, not one fused and one "
+                             "level launch")
     f32 = 4
-    level_design = (later_idx * 128 * f32 + op.work_rows * 128 * f32
-                    + (op.work_rows - l0_rows) * 128 * f32 + op.n_pad * f32)
     res = {
         "dp": {**bound(variant_bytes("sell", op, x.numel() * f32, n * f32), 2 * coo.nnz, bw),
-               "design_bytes": traffic["staged_bytes"] + level_design,
+               "design_bytes": traffic["staged_bytes"] + levels["design_bytes"],
                **time_windows(torch, lambda: sell.sell_dp_cuda(op, x2d, sr)),
                "plain_ms": time_ms(torch, lambda: sell.dp_sell_plain(op, x, sr, n_rows=n), 3)},
         "sell_fused": {
@@ -1585,23 +1660,45 @@ def sell_kernel_times(torch, op, coo, errs) -> dict:
             **time_windows(torch, lambda: sell.fused_cuda(op, x2d, sr, work, dp)),
             "plain_ms": time_ms(torch, lambda: sell.fused_plain(op, x2d, sr), 3)},
         "sell_level": {
-            **bound(level_in + op.n_pad * f32, later_ops, bw),
-            "design_bytes": level_design,
+            **bound(levels["bound_bytes"], levels["operations"], bw),
+            "traffic": levels, "work_path_design_bytes": sell.level_traffic(work_op)[
+                "design_bytes"],
             **time_windows(torch, lambda: sell.levels_cuda(op, sr, work, dp)),
             "plain_ms": time_ms(torch, plain_levels, 3)},
+        "spmv_call": {**time_windows(torch, lambda: spmv(op, x, sr=sr, variant="sell",
+                                                         n_rows=n)),
+                      "launches_per_call": per_call},
         "depth_rows": list(op.depth_rows), "work_rows": op.work_rows,
-        # device ms per launch inside the dp, from torch.profiler: the later
-        # levels' CUDA-event time above is the host's, when it enqueues
-        # slower than the card runs them
+        "work_path_work_rows": work_op.work_rows,
+        # device ms per launch inside the dp, from torch.profiler: the level
+        # launch's CUDA-event time above is the host's, when it enqueues
+        # slower than the card runs it
         "profiler": stage_ms(torch, lambda: sell.sell_dp_cuda(op, x2d, sr),
                              r"sell_(fused|level)_kernel"),
+        "profiler_work_path": stage_ms(torch, lambda: sell.sell_dp_cuda(work_op, x2d, sr),
+                                       r"sell_(fused|level)_kernel"),
+        "level_alone": stage_ms(torch, lambda: sell.levels_cuda(op, sr, work, dp),
+                                r"sell_level_kernel"),
+        "call_trace": call_trace(torch, lambda: sell.sell_dp_cuda(op, x2d, sr), "sell_fused"),
+        "call_trace_work_path": call_trace(
+            torch, lambda: sell.sell_dp_cuda(work_op, x2d, sr), "sell_fused"),
     }
-    levels = res["profiler"].get("sell_level_kernel")
-    if levels:
-        res["sell_level"]["device_ms"] = levels["ms"] * (len(op.depth_rows) - 1)
+    alone = res["level_alone"].get("sell_level_kernel")
+    trace = res["call_trace"]
+    if alone:
+        res["sell_level"]["device_ms"] = alone["ms"]
+    if "tail_ms" in trace:
+        res["sell_level"]["tail_ms"] = trace["tail_ms"]
+    if alone and "call_ms" in trace:
+        # the aims: the level launch at most 0.0052 ms on the card, a dp at
+        # most the fused launch + 0.004 ms (the trace's call, from one
+        # fused launch's start to the next one's)
+        res["aims"] = {"level_device_ms": alone["ms"], "level_aim_ms": 0.0052,
+                       "dp_call_ms": trace["call_ms"],
+                       "dp_aim_ms": trace["first_ms"] + 0.004}
     csr = csr_of(torch, coo)
     res["library_ms"] = time_ms(torch, lambda: torch.mv(csr, x), 20)
-    del csr, work, dp, level0
+    del csr, work, dp, level0, work_op
     return res
 
 
@@ -2832,8 +2929,9 @@ def main() -> int:
         **{k: t[k] for k in keys}, "points": points,
     })
     # sell_fused also replaces level 0 of pallas_sell.py:361, sell_level its
-    # depths 1 and more; the later levels' time is the card's (profiler),
-    # since the host enqueues their small launches slower than they run
+    # depths 1 and more in one launch; the level launch's time is the
+    # card's (profiler, launched alone), since the host enqueues it slower
+    # than it runs, and tail_ms what it adds past the fused launch in a dp
     for name, line in (("sell_fused", 330), ("sell_level", 361)):
         t = ltimes[name]
         kernels.append({
@@ -2843,6 +2941,7 @@ def main() -> int:
             "ms": t.get("device_ms", t["ms"]),
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": ltimes["library_ms"],
+            **({"tail_ms": t["tail_ms"]} if "tail_ms" in t else {}),
         })
     emit({"kernels": kernels})
     print(nvidia_smi())

@@ -12,6 +12,7 @@ from sparseharness_tpu_torch.formats.generate import (  # noqa: F401
     banded_coo,
     block_random_coo,
     chained_power_law_coo,
+    deep_hub_coo,
     power_law_coo,
     random_coo,
     random_graph_coo,

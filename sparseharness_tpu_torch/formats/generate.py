@@ -87,6 +87,21 @@ def power_law_coo(n: int, nnz: int, alpha: float = 1.5, dtype=np.float32,
     return _dedup(rows2, cols2, vals, (n, n))
 
 
+def deep_hub_coo(n: int = 4224, hub: int = 4100, background: int = 170_000,
+                 dtype=np.float32, seed: int = 3) -> COO:
+    """Row 0 holds ``hub`` entries at distinct columns over ``background``
+    uniform entries that avoid row 0's lane (every row ≡ 0 mod 128): with
+    more than 64² hub entries, sell chains row 0 through three levels past
+    level 0, while the lane's short phase-A stream keeps the build within
+    its stream and padding limits. Duplicates are kept."""
+    rng = np.random.default_rng(seed)
+    r = rng.integers(0, n, 2 * background)
+    r = r[r % 128 != 0][:background]
+    rows = np.concatenate([np.zeros(hub, np.int64), r])
+    cols = np.concatenate([rng.choice(n, hub, replace=False), rng.integers(0, n, len(r))])
+    return coo_from_arrays(rows, cols, rng.uniform(0.1, 1.0, len(rows)).astype(dtype), (n, n))
+
+
 def chained_power_law_coo(n: int, clusters: int, nnz_per_node: float = 4.0,
                           alpha: float = 1.5, dtype=np.float32, seed: int = 0,
                           weight_range=(0.1, 1.0)) -> COO:

@@ -19,8 +19,9 @@ a Mosaic limit a CUDA kernel does not have.
 On a CUDA tensor :func:`dp_sell` launches the two kernels of
 ``csrc/sell.cu``: one fused launch computes every slab's level 0 straight
 from the phase-A stream, so the contrib stream is never written, then one
-level launch per later depth covers every slab that has that level. Both
-are driven by tables built once with the operand. On a CPU tensor it runs
+level launch covers every later depth of every slab, a block per (slab,
+32-lane slice) chaining its depths in shared memory. Both are driven by
+tables built once with the operand. On a CPU tensor it runs
 :func:`dp_sell_plain`, which does the same arithmetic slab by slab in
 torch with the same ⊕ order.
 """
@@ -64,6 +65,20 @@ GROUP_LANES = 32
 GROUP_SLOTS = 512
 #: most stream rows a fused-launch block stages (72 KB of f32 products)
 STAGE_ROWS = 576
+#: int32 words of one level-launch chain, as csrc/sell.cu:ChainField
+CHAIN_WORDS = 8
+C_LATER, C_SHARED, C_ENTRIES = 0, 1, 2
+#: most levels past 0 a chain row holds; a slab's phase-A stream has at most
+#: TB_MAX rows, so a row has at most TB_MAX slots and chains through 3
+MAX_LATER = CHAIN_WORDS - C_ENTRIES
+#: most rows of GROUP_LANES 4-byte words a level block may keep in shared
+#: memory (227 KB less 1 KB of table entries), as csrc/sell.cu:kMaxLevelRows.
+#: A slab's level block keeps its later levels' idx rows, its level-0 rows
+#: and its intermediate rows there when they fit, else takes the work path.
+#: Every block of a launch gets the largest shared slab's rows, but on the
+#: H100 a launch of the band's slabs (208 rows) and one of 825 rows ran no
+#: slower with that slab shared than on the work path
+LEVEL_ROWS_MAX = (232448 - 1024) // (GROUP_LANES * 4)
 
 
 class _LevelLayout(NamedTuple):
@@ -95,7 +110,10 @@ class SellOperand(NamedTuple):
     per (slab, level), same order, and ``depth_entries`` the first entry
     of each depth (one more than the depths). ``groups`` holds one
     GROUP_WORDS row per block of the fused depth-0 launch, and
-    ``stage_rows`` the most stream rows one of them stages."""
+    ``stage_rows`` the most stream rows one of them stages. ``chains``
+    holds one CHAIN_WORDS row per slab with a later level (the level
+    launch takes four blocks of each), and ``level_rows`` the most rows of
+    GROUP_LANES words one of those blocks keeps in shared memory."""
 
     slabs: List[dict]
     layouts: Tuple[_SlabLayout, ...]
@@ -108,9 +126,11 @@ class SellOperand(NamedTuple):
     table: torch.Tensor         # int32 (E, ENTRY_WORDS)
     depth_entries: Tuple[int, ...]
     depth_rows: Tuple[int, ...]  # output rows of each depth
-    work_rows: int              # every non-final level's output rows
+    work_rows: int              # level 0's and the work path's non-final rows
     groups: torch.Tensor        # int32 (G, GROUP_WORDS)
     stage_rows: int
+    chains: torch.Tensor        # int32 (C, CHAIN_WORDS)
+    level_rows: int
 
     @property
     def n_pad(self) -> int:
@@ -313,33 +333,72 @@ def _build_levels(row_local: np.ndarray, sub: np.ndarray, rows: int, t_a: int,
         li += 1
 
 
-def launch_table(layouts) -> Tuple[np.ndarray, Tuple[int, ...], Tuple[int, ...], int,
-                                   List[Tuple[int, int]]]:
-    """The level launch table of csrc/sell.cu, from the layouts alone.
+class LaunchTables(NamedTuple):
+    table: np.ndarray               # int32 (E, ENTRY_WORDS)
+    depth_entries: Tuple[int, ...]  # first entry of each depth, and E
+    depth_rows: Tuple[int, ...]     # output rows of each depth
+    work_rows: int
+    order: List[Tuple[int, int]]    # (slab, level) of each entry
+    chains: np.ndarray              # int32 (C, CHAIN_WORDS)
+    level_rows: int                 # most shared rows of a level block
+
+
+def chain_rows(lay: _SlabLayout) -> Tuple[int, int]:
+    """(idx rows, value rows) that a level block of this slab keeps in
+    shared memory on the shared path, per lane slice: every later level's
+    region rows of idx (its rows past the last region are padding that no
+    output reads), then level 0's output rows and those of every later
+    level but the final one."""
+    idx_rows = sum(lv.regions[-1][2] for lv in lay.levels[1:])
+    return idx_rows, sum(lv.d_out for lv in lay.levels[:-1])
+
+
+def launch_table(layouts, level_rows: int = LEVEL_ROWS_MAX) -> LaunchTables:
+    """The launch tables of csrc/sell.cu, from the layouts alone.
 
     Entries are (slab, level) pairs ordered by level depth, then slab, so
     entry si is slab si's level 0. A level-0 entry's source is the slab's
     phase-A stream: its first row in the flat lanesel / vals / blocksel and
-    its t_a rows. The outputs of non-final levels live in one work buffer
-    of 128-wide rows, in entry order from row 0; a later level reads its
-    source there, and a final level writes the slab's rows at row0 / 128 of
-    the dp. Returns (table, first entry of each depth, output rows of each
-    depth, work rows, and per entry its (slab, level))."""
+    its t_a rows; a final level writes the slab's rows at row0 / 128 of the
+    dp. The level-0 rows of non-final levels open the work buffer of
+    128-wide rows, in slab order. Each slab with a later level is a chain
+    row: its count of later levels, whether its level block keeps them in
+    shared memory, and their entries. It does when its :func:`chain_rows`
+    total at most ``level_rows``; then a later non-final level's rows sit
+    in the block's intermediate rows (after its idx rows and its copy of
+    the level-0 rows), and its entry's offsets point there. Otherwise they
+    follow level 0's in the work buffer, in entry order."""
+    if not 0 <= level_rows <= LEVEL_ROWS_MAX:
+        raise ValueError(f"level_rows must lie in [0, {LEVEL_ROWS_MAX}]")
     a_off = np.concatenate([[0], np.cumsum([lay.t_a for lay in layouts])]).astype(int)
     depths = max(len(lay.levels) for lay in layouts)
-    out_of, work = {}, 0
     order = [(si, li) for li in range(depths) for si, lay in enumerate(layouts)
              if li < len(lay.levels)]
+    shared = {}
+    for si, lay in enumerate(layouts):
+        if len(lay.levels) > 1:
+            if len(lay.levels) - 1 > MAX_LATER:
+                raise NotImplementedError(f"a slab chains through {len(lay.levels) - 1} levels "
+                                          f"past 0; the level launch takes {MAX_LATER}")
+            shared[si] = sum(chain_rows(lay)) <= level_rows
+    out_of, work, inter = {}, 0, {}
     for si, li in order:
         level = layouts[si].levels[li]
-        if not level.final:
+        if level.final:
+            continue
+        if li > 0 and shared[si]:
+            out_of[si, li] = inter.get(si, 0)
+            inter[si] = out_of[si, li] + level.d_out
+        else:
             out_of[si, li] = work
             work += level.d_out
     table = np.zeros((len(order), ENTRY_WORDS), np.int32)
+    entry_of = {}
     depth_entries, depth_rows = [0], []
     idx_off = 0
     rows_in_depth, cur = 0, 0
     for e, (si, li) in enumerate(order):
+        entry_of[si, li] = e
         if li != cur:
             depth_entries.append(e)
             depth_rows.append(rows_in_depth)
@@ -363,7 +422,16 @@ def launch_table(layouts) -> Tuple[np.ndarray, Tuple[int, ...], Tuple[int, ...],
         idx_off += level.t_src
     depth_entries.append(len(order))
     depth_rows.append(rows_in_depth)
-    return table, tuple(depth_entries), tuple(depth_rows), work, order
+    chains = np.zeros((len(shared), CHAIN_WORDS), np.int32)
+    most = 0
+    for c, si in enumerate(sorted(shared)):
+        later = len(layouts[si].levels) - 1
+        chains[c, :C_ENTRIES + later] = [later, int(shared[si])] + [
+            entry_of[si, li] for li in range(1, later + 1)]
+        if shared[si]:
+            most = max(most, sum(chain_rows(layouts[si])))
+    return LaunchTables(table, tuple(depth_entries), tuple(depth_rows), work, order, chains,
+                        most)
 
 
 def fused_groups(table: np.ndarray, idx0s, group_slots: int = GROUP_SLOTS,
@@ -409,16 +477,16 @@ def assemble(slab_arrays, layouts, xrows: int, n_rows: int,
     """The operand from per-slab NumPy arrays (int32 indices, values in the
     carrier type): the flat tensors on ``device``, each slab's arrays as
     views of them, and the launch tables."""
-    table, depth_entries, depth_rows, work, order = launch_table(layouts)
-    groups, stage_rows = fused_groups(table, [a["idx0"] for a in slab_arrays])
+    lt = launch_table(layouts)
+    groups, stage_rows = fused_groups(lt.table, [a["idx0"] for a in slab_arrays])
 
     def flat(parts):
         return torch.from_numpy(np.concatenate([np.asarray(a) for a in parts])).to(device)
 
     lanesel, vals, blocksel = (flat([a[key] for a in slab_arrays])
                                for key in ("lanesel", "vals", "blocksel"))
-    idx = flat([slab_arrays[si][f"idx{li}"] for si, li in order])
-    idx_off = {key: int(table[e, 4]) for e, key in enumerate(order)}
+    idx = flat([slab_arrays[si][f"idx{li}"] for si, li in lt.order])
+    idx_off = {key: int(lt.table[e, 4]) for e, key in enumerate(lt.order)}
     slabs, a0 = [], 0
     for si, lay in enumerate(layouts):
         slab = {key: t[a0:a0 + lay.t_a]
@@ -431,9 +499,10 @@ def assemble(slab_arrays, layouts, xrows: int, n_rows: int,
     return SellOperand(
         slabs=slabs, layouts=layouts, xrows=int(xrows), n_rows=int(n_rows),
         lanesel=lanesel, vals=vals, blocksel=blocksel, idx=idx,
-        table=torch.from_numpy(table).to(device), depth_entries=depth_entries,
-        depth_rows=depth_rows, work_rows=work,
+        table=torch.from_numpy(lt.table).to(device), depth_entries=lt.depth_entries,
+        depth_rows=lt.depth_rows, work_rows=lt.work_rows,
         groups=torch.from_numpy(groups).to(device), stage_rows=stage_rows,
+        chains=torch.from_numpy(lt.chains).to(device), level_rows=lt.level_rows,
     )
 
 
@@ -445,6 +514,18 @@ def regroup(op: SellOperand, group_slots: int = GROUP_SLOTS,
                                 [slab["idx0"].cpu().numpy() for slab in op.slabs],
                                 group_slots, stage_rows)
     return op._replace(groups=torch.from_numpy(groups).to(op.table.device), stage_rows=most)
+
+
+def relevel(op: SellOperand, level_rows: int = LEVEL_ROWS_MAX) -> SellOperand:
+    """``op`` with its level launch planned anew under another shared-memory
+    limit: ``level_rows`` 0 puts every slab on the work path. Level 0's
+    entries, and so the fused launch's blocks, do not change. A seam for
+    the tests and the probes, which drive each matrix through both of the
+    kernel's paths; the package itself plans only with LEVEL_ROWS_MAX."""
+    lt = launch_table(op.layouts, level_rows)
+    dev = op.table.device
+    return op._replace(table=torch.from_numpy(lt.table).to(dev), work_rows=lt.work_rows,
+                       chains=torch.from_numpy(lt.chains).to(dev), level_rows=lt.level_rows)
 
 
 def pad_x2d(op: SellOperand, x: torch.Tensor, sr: Semiring) -> torch.Tensor:
@@ -611,6 +692,53 @@ def fused_traffic(op: SellOperand) -> dict:
     }
 
 
+def level_traffic(op: SellOperand) -> dict:
+    """Bytes and operations of the level launch, counted from the operand.
+
+    ``bound_bytes``: what the function must move, each input once: the
+    level-0 rows it reads, the later levels' idx region rows (the rows past
+    a level's last region are padding no output reads) and the final rows
+    of the slabs with a later level written (the other slabs' final rows
+    come from the fused launch). ``operations``: one ⊕ per valid idx slot (below its level's
+    source rows) past the first valid one of its run. ``design_bytes``:
+    what the launch moves by its design: each block's table entries, the
+    later levels' idx region rows (staged on the shared path, read in
+    place on the work path), the level-0 rows, the work path's
+    intermediates written and read back, and the chained slabs' dp rows.
+    Also the chains on each path and the shared rows a block holds."""
+    item = op.vals.element_size()
+    lanes_bytes = LANES * item
+    chains = op.chains.cpu().numpy()
+    on_work = {int(e) for c in chains if not c[C_SHARED]
+               for e in c[C_ENTRIES:C_ENTRIES + c[C_LATER]]}
+    level0 = region_rows = inter_work = final_rows = ops = 0
+    table = op.table.cpu().numpy()
+    for si, (slab, lay) in enumerate(zip(op.slabs, op.layouts)):
+        if len(lay.levels) == 1:
+            continue
+        level0 += lay.levels[0].d_out
+        final_rows += lay.levels[-1].d_out
+        region_rows += chain_rows(lay)[0]
+        for li in range(1, len(lay.levels)):
+            arr = slab[f"idx{li}"].cpu().numpy()
+            for (w, s0, s1) in lay.levels[li].regions:
+                valid = arr[s0:s1] < lay.levels[li - 1].d_out
+                ops += int(valid.sum()) - int(valid.reshape(-1, w, LANES).any(1).sum())
+    for e in on_work:
+        if not table[e, 6]:
+            inter_work += int(table[e, 1])
+    entries = sum(int(c[C_LATER]) for c in chains) * (LANES // GROUP_LANES) * ENTRY_WORDS * 4
+    return {
+        "bound_bytes": (level0 + final_rows) * lanes_bytes + region_rows * LANES * 4,
+        "operations": ops,
+        "design_bytes": entries + region_rows * LANES * 4 + level0 * lanes_bytes
+        + 2 * inter_work * lanes_bytes + final_rows * lanes_bytes,
+        "shared_chains": int(chains[:, C_SHARED].sum()) if len(chains) else 0,
+        "work_chains": int((chains[:, C_SHARED] == 0).sum()) if len(chains) else 0,
+        "level_rows": op.level_rows,
+    }
+
+
 def fused_cuda(op: SellOperand, x2d: torch.Tensor, sr: Semiring, work: torch.Tensor,
                dp: torch.Tensor) -> None:
     """Launch the fused depth-0 kernel once over every slab: each slab's
@@ -632,30 +760,92 @@ def fused_cuda(op: SellOperand, x2d: torch.Tensor, sr: Semiring, work: torch.Ten
     _build.LAUNCHES["sell_fused"] += 1
 
 
+def levels_plain(op: SellOperand, sr: Semiring, work: torch.Tensor,
+                 dp: torch.Tensor) -> None:
+    """What the level launch writes, in torch, from its tables, on any
+    device; a model of its schedule for the tests, never on the card's path.
+
+    Per chain row and 32-lane slice (one block): on the shared path the
+    later levels' idx region rows and the slab's level-0 rows are first
+    copied into the block's rows, and each later non-final level writes the
+    block's intermediate rows; on the work path idx and the level-0 rows
+    are read in place and the intermediates go to ``work``. Depth 1 gathers
+    from the level-0 rows, each later depth from the previous one's rows; a
+    source row at or past the level's source rows reads 0̄; each output is
+    the left-to-right ⊕ of its run's w gathered rows; the final depth
+    writes ``dp``."""
+    _, add, _, _, zero, _ = _carrier(sr)
+    table = op.table.tolist()
+    dp2d = dp.view(-1, LANES)
+    for chain in op.chains.tolist():
+        later, shared = chain[C_LATER], bool(chain[C_SHARED])
+        entries = [table[e] for e in chain[C_ENTRIES:C_ENTRIES + later]]
+        ends = []   # idx rows of each later level: s0 + runs · w of its last region
+        for e in entries:
+            w, s0, oc0, oc1 = e[4 + 4 * e[7]:8 + 4 * e[7]]
+            ends.append(s0 + (oc1 - oc0) * w)
+        base = np.concatenate([[0], np.cumsum(ends)]).astype(int)
+        inter_rows = sum(e[1] for e in entries if not e[6])
+        for lane0 in range(0, LANES, GROUP_LANES):
+            lanes = slice(lane0, lane0 + GROUP_LANES)
+            if shared:
+                sidx = torch.cat([op.idx[e[4]:e[4] + n, lanes] for e, n in zip(entries, ends)])
+                level0 = work[entries[0][2]:entries[0][2] + entries[0][3], lanes].clone()
+                inter = torch.zeros((inter_rows, GROUP_LANES), dtype=work.dtype,
+                                    device=work.device)
+            for d, e in enumerate(entries):
+                d_out, src_off, src_rows, idx_off, out_off, final = e[1:7]
+                if shared:
+                    src = level0 if d == 0 else inter[src_off:src_off + src_rows]
+                else:
+                    src = work[src_off:src_off + src_rows, lanes]
+                ix_all = sidx[base[d]:base[d + 1]] if shared else op.idx[idx_off:, lanes]
+                for k in range(e[7]):
+                    w, s0, oc0, oc1 = e[8 + 4 * k:12 + 4 * k]
+                    ix = ix_all[s0:s0 + (oc1 - oc0) * w].long()
+                    valid = ix < src_rows
+                    z = torch.gather(src, 0, torch.where(valid, ix, 0))
+                    z = torch.where(valid, z, torch.full_like(z, zero)).view(oc1 - oc0, w, -1)
+                    acc = z[:, 0]
+                    for t in range(1, w):
+                        acc = add(acc, z[:, t])
+                    rows = slice(out_off + oc0, out_off + oc1)
+                    if final:
+                        dp2d[rows, lanes] = acc
+                    elif shared:
+                        inter[rows] = acc
+                    else:
+                        work[rows, lanes] = acc
+
+
 def levels_cuda(op: SellOperand, sr: Semiring, work: torch.Tensor,
                 dp: torch.Tensor) -> None:
-    """Launch the level kernel once per level depth past 0, over every slab
-    that has that level: from the level-0 rows in ``work`` to ``dp``."""
+    """Launch the level kernel once over every level past 0 of every slab:
+    from the level-0 rows in ``work`` to ``dp``. Launched with
+    programmatic dependent launch, so it may start while the launch before
+    it on the stream drains. Nothing to launch when no slab has a later
+    level."""
     _check(op, sr, work, dp)
     if work.shape != (op.work_rows, LANES) or dp.numel() != op.n_pad:
         raise ValueError(f"work must be ({op.work_rows}, {LANES}) and dp hold {op.n_pad} "
                          "rows")
+    if op.chains.shape[0] == 0:
+        return
     index, codes, stream = _launch_args(op, sr)
     fn = _build.function("sell", "sh_sell_level",
-                         [ctypes.c_int] + [ctypes.c_void_p] * 4
-                         + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    for d in range(1, len(op.depth_rows)):
-        e0, e1 = op.depth_entries[d], op.depth_entries[d + 1]
-        _build.check_launch("sell", fn(
-            index, op.table.data_ptr(), op.idx.data_ptr(), work.data_ptr(), dp.data_ptr(),
-            e0, e1 - e0, op.depth_rows[d], *codes, stream))
-        _build.LAUNCHES["sell_level"] += 1
+                         [ctypes.c_int] + [ctypes.c_void_p] * 5
+                         + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    _build.check_launch("sell", fn(
+        index, op.chains.data_ptr(), op.table.data_ptr(), op.idx.data_ptr(), work.data_ptr(),
+        dp.data_ptr(), op.chains.shape[0], op.level_rows, *codes, stream))
+    _build.LAUNCHES["sell_level"] += 1
 
 
 def sell_dp_cuda(op: SellOperand, x2d: torch.Tensor, sr: Semiring) -> torch.Tensor:
-    """The carrier-typed dp (n_pad rows): one fused depth-0 launch, then one
-    level launch per later depth. Raises on what the kernels do not take
-    and on a refused launch."""
+    """The carrier-typed dp (n_pad rows): the fused depth-0 launch, then the
+    level launch (none when every slab is one level): two launches a call
+    whatever the depth. Raises on what the kernels do not take and on a
+    refused launch."""
     carrier = _check(op, sr, x2d)
     work = torch.empty((op.work_rows, LANES), dtype=carrier, device=x2d.device)
     dp = torch.empty(op.n_pad, dtype=carrier, device=x2d.device)

@@ -124,6 +124,9 @@ CONTRACTS: Dict[str, Dict[str, Contract]] = {
                        "tests/test_torch_sell.py holds it against a model of the kernels"),
         "groups": _skip("fused-launch block table derived from the layouts; "
                         "tests/test_torch_sell.py holds its coverage"),
+        # level-launch chains: counts, a 0/1 flag and entries, all below the
+        # entries' count
+        "chains": _index(lambda c: (0, c.op.table.shape[0])),
         "slabs.[].lanesel": _SELL_VIEW, "slabs.[].vals": _SELL_VIEW,
         "slabs.[].blocksel": _SELL_VIEW, "slabs.[].idx*": _skip(
             "a view of the flat idx, checked there"),

@@ -3,7 +3,8 @@ bsr_band kernel's staged and streamed paths, the strip kernel of bsr_fused
 and bsr_ell, the gen-1 tile kernel of bsr_pallas, the sell2 panel kernel
 the two SpMM kernels (spmm_band, also on X with ±inf and NaN; spmm_tiles
 at m up to 256 through both maps) and the sell fused depth-0
-and level kernels, against their plain versions on the same CUDA tensors,
+and level kernels (the level launch on both of its paths), against their
+plain versions on the same CUDA tensors,
 spmv, spmm and multi_sssp launching each kernel, and the sell2 plan made on
 the card against the one made on the CPU. They
 skip without a card; run them on one with
@@ -21,7 +22,7 @@ import pytest
 import torch
 
 from sparseharness_tpu_torch.formats import (
-    banded_coo, block_random_coo, coo_from_arrays, power_law_coo, random_coo,
+    banded_coo, block_random_coo, coo_from_arrays, deep_hub_coo, power_law_coo, random_coo,
 )
 from sparseharness_tpu_torch.ops import (
     LAUNCHES, bsr, bsr_band, bsr_ell, bsr_fused, sell, sell2, spmm, spmm_tiles, spmv,
@@ -558,19 +559,65 @@ def test_sell_kernels_match_plain(name, cuda):
 
 
 @pytest.mark.cuda
-def test_spmv_sell_launches_one_fused_and_one_level_per_later_depth(cuda):
+@pytest.mark.parametrize("path", ["shared", "work"])
+@pytest.mark.parametrize("name", sorted(REGISTRY))
+def test_sell_level_kernel_matches_plain(name, path, cuda):
+    """The level launch alone, from the fused launch's level-0 rows, against
+    its model (levels_plain) on the same rows, and the whole dp against
+    dp_sell_plain: bit for bit for every semiring, with every slab's later
+    levels chained in shared memory and with every slab through the work
+    buffer, on matrices of 2, 3 and 4 levels."""
+    sr = get_semiring(name)
+    limit = sell.LEVEL_ROWS_MAX if path == "shared" else 0
+    for coo, kw in _sell_cases() + [(deep_hub_coo(), {})]:
+        if sr.dtype == torch.bool:
+            coo = coo.with_values(coo.vals != 0)
+        op = sell.relevel(sell.build_sell(coo, sr, device=cuda, **kw), limit)
+        x = _x(sr, coo.shape[1], seed=10).to(cuda)
+        x2d = sell.pad_x2d(op, x, sr)
+        work, dp = sell.fused_plain(op, x2d, sr)
+        work_ref, dp_ref = work.clone(), dp.clone()
+        sell.levels_cuda(op, sr, work, dp)
+        sell.levels_plain(op, sr, work_ref, dp_ref)
+        torch.cuda.synchronize()
+        assert torch.equal(dp.view(torch.int32), dp_ref.view(torch.int32))
+        assert torch.equal(work.view(torch.int32), work_ref.view(torch.int32))
+        got = sell.sell_dp_cuda(op, x2d, sr)
+        ref = sell.dp_sell_plain(op, x, sr, n_rows=coo.shape[0])
+        assert torch.equal(got > 0, ref) if sr.dtype == torch.bool else torch.equal(
+            got.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_spmv_sell_launches_one_fused_and_one_level_per_call(cuda):
+    """Two launches a call whatever the depth, on a matrix of three levels
+    whose launch mixes both paths (its largest slab moved to the work path
+    by a lower shared-memory limit); none for the level launch where every
+    slab is one level."""
     coo = power_law_coo(2000, 30000, seed=5)
-    op = sell.build_sell(coo, PLUS_TIMES, slab_nnz=8000, device=cuda)
-    assert len(op.layouts) >= 2 and op.max_levels >= 2
+    op = sell.relevel(sell.build_sell(coo, PLUS_TIMES, slab_nnz=8000, device=cuda), 500)
+    assert len(op.layouts) >= 2 and op.max_levels == 3
+    assert sorted(set(op.chains[:, 1].tolist())) == [0, 1]
     x = _x(PLUS_TIMES, coo.shape[1], seed=4).to(cuda)
     before = dict(LAUNCHES)
     y = spmv(op, x, sr=PLUS_TIMES, variant="sell", n_rows=coo.shape[0])
     torch.cuda.synchronize()
     assert LAUNCHES["sell_fused"] == before["sell_fused"] + 1
-    assert LAUNCHES["sell_level"] == before["sell_level"] + op.max_levels - 1
-    assert sum(LAUNCHES.values()) == sum(before.values()) + op.max_levels
-    inner = sum(lv.d_out for lay in op.layouts for lv in lay.levels if not lv.final)
-    assert op.work_rows == inner
+    assert LAUNCHES["sell_level"] == before["sell_level"] + 1
+    assert sum(LAUNCHES.values()) == sum(before.values()) + 2
+    level0 = sum(lay.levels[0].d_out for lay in op.layouts if not lay.levels[0].final)
+    inner = sum(lv.d_out for lay, c in zip([lay for lay in op.layouts if len(lay.levels) > 1],
+                                           op.chains[:, 1].tolist())
+                if not c for lv in lay.levels[1:] if not lv.final)
+    assert op.work_rows == level0 + inner
+    diag = coo_from_arrays(np.arange(700), np.arange(700)[::-1].copy(),
+                           np.ones(700, np.float32), (700, 700))
+    one = sell.build_sell(diag, PLUS_TIMES, device=cuda)
+    assert one.max_levels == 1 and one.chains.shape[0] == 0
+    before = dict(LAUNCHES)
+    spmv(one, torch.ones(700, device=cuda), sr=PLUS_TIMES, variant="sell", n_rows=700)
+    assert LAUNCHES["sell_fused"] == before["sell_fused"] + 1
+    assert LAUNCHES["sell_level"] == before["sell_level"]
     cpu_op = sell.build_sell(coo, PLUS_TIMES, slab_nnz=8000, device="cpu")
     ref = spmv(cpu_op, x.cpu(), sr=PLUS_TIMES, variant="sell", n_rows=coo.shape[0])
     assert torch.equal(y.cpu(), ref)

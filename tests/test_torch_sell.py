@@ -6,9 +6,12 @@ exactly and refuse what it refuses. The plain dp, on the port-built operand
 and on the JAX-built one carried over by interop, must equal JAX's dp_sell
 (its Pallas kernels in interpret mode) bit for bit for all seven
 semirings, plus_times included: both fold in the layout's fixed order. The
-CUDA kernels cannot run here, so their launch table is held by a torch
-model of what csrc/sell.cu computes from it, which must give the plain
-version's bits.
+CUDA kernels cannot run here, so their tables are held by torch models of
+what csrc/sell.cu computes from them (the fused launch's here, the level
+launch's ``sell.levels_plain``), which must give the plain version's and
+JAX's bits, on both of the level launch's paths (a slab's later levels
+chained in shared memory, or through the work buffer). Tolerance: none,
+bits.
 """
 
 import jax.numpy as jnp
@@ -211,40 +214,26 @@ def _fused_model(op, x2d, sr, work, dp):
 
 def _kernel_model(op, x2d, sr):
     """What csrc/sell.cu computes from its tables, in torch: the fused
-    depth-0 launch (_fused_model), then per later depth, for each output
-    row (block), its entry by binary search on row_begin, its region, the
-    left-to-right ⊕ of its w gathered rows, written to the work buffer or
-    (final) the dp."""
-    carrier, add, mul, _, zero, _ = _carrier(sr)
-    work = torch.full((op.work_rows, 128), 7, dtype=carrier)  # stale values must not leak
+    depth-0 launch (_fused_model), then the level launch
+    (sell.levels_plain: per chain row and 32-lane slice, every later depth
+    in turn, through the block's shared rows or the work buffer), from a
+    work buffer and a dp full of stale values, which must not leak."""
+    carrier = _carrier(sr)[0]
+    work = torch.full((op.work_rows, 128), 7, dtype=carrier)
     dp = torch.full((op.n_pad // 128, 128), 7, dtype=carrier)
     _fused_model(op, x2d, sr, work, dp)
-    t = op.table.long()
-    flat_idx = op.idx.long()
-    lane = torch.arange(128)
-    for d in range(1, len(op.depth_rows)):
-        rows = op.depth_rows[d]
-        e0, e1 = op.depth_entries[d], op.depth_entries[d + 1]
-        b = torch.arange(rows)
-        e = e0 + torch.searchsorted(t[e0:e1, 0].contiguous(), b, right=True) - 1
-        r = b - t[e, 0]
-        reg = t[e, 8:24].view(-1, 4, 4)
-        k = ((r[:, None] >= reg[:, :, 3]) & (torch.arange(4) < t[e, 7:8] - 1)).sum(1)
-        w, s0, oc0 = (reg[torch.arange(rows), k, f] for f in range(3))
-        base = t[e, 4] + s0 + (r - oc0) * w
-
-        def gather(step):
-            ix = flat_idx[(base + step).clamp(max=flat_idx.shape[0] - 1)]   # (rows, 128)
-            src = work[(t[e, 2][:, None] + ix).clamp(max=op.work_rows - 1), lane]
-            return torch.where(ix < t[e, 3][:, None], src, torch.full_like(src, zero))
-
-        acc = gather(0)
-        for step in range(1, int(w.max())):
-            acc = torch.where((step < w)[:, None], add(acc, gather(step)), acc)
-        final = t[e, 6] == 1
-        dp[t[e, 5][final] + r[final]] = acc[final]
-        work[t[e, 5][~final] + r[~final]] = acc[~final]
+    sell.levels_plain(op, sr, work, dp.view(-1))
     return dp.reshape(-1)
+
+
+def _level_paths(op):
+    """The operand as built (every slab on the shared path: none of these
+    needs more rows than LEVEL_ROWS_MAX), with the slabs that need more
+    rows than the median chain on the work path, and with every slab on
+    the work path."""
+    need = [sum(sell.chain_rows(lay)) for lay in op.layouts if len(lay.levels) > 1]
+    split = int(np.median(need)) if need else 0
+    return {"built": op, "split": sell.relevel(op, split), "work": sell.relevel(op, 0)}
 
 
 @pytest.mark.parametrize("stage_rows", [sell.STAGE_ROWS, 0], ids=["staged", "in_place"])
@@ -252,17 +241,20 @@ def _kernel_model(op, x2d, sr):
 def test_kernel_model_equals_plain(matrix, stage_rows):
     """The launch tables drive the kernels' arithmetic to the plain
     version's bits, for every semiring, with the fused launch's blocks
-    staged where they may be and with every block gathering in place."""
+    staged where they may be and with every block gathering in place, and
+    the level launch as built, all shared and all through the work
+    buffer."""
     for name in NAMES:
         sr = get_semiring(name)
         coo, _, kw = _coos(matrix, sr)
-        op = sell.regroup(sell.build_sell(coo, sr, device="cpu", **kw), stage_rows=stage_rows)
+        built = sell.regroup(sell.build_sell(coo, sr, device="cpu", **kw), stage_rows=stage_rows)
         x = torch.from_numpy(_x(sr, coo.shape[1], seed=6))
-        want = sell.dp_sell_plain(op, x, sr, n_rows=coo.shape[0])
-        got = _kernel_model(op, sell.pad_x2d(op, x, sr), sr)
-        if _carrier(sr)[5]:
-            got = got > 0
-        assert got.dtype == want.dtype and torch.equal(got, want), name
+        want = sell.dp_sell_plain(built, x, sr, n_rows=coo.shape[0])
+        for path, op in _level_paths(built).items():
+            got = _kernel_model(op, sell.pad_x2d(op, x, sr), sr)
+            if _carrier(sr)[5]:
+                got = got > 0
+            assert got.dtype == want.dtype and torch.equal(got, want), (name, path)
 
 
 @pytest.mark.parametrize("name", ["plus_times", "min_plus", "or_and", "min_right"])
@@ -337,11 +329,46 @@ def test_fused_traffic_on_band():
     assert 24 < t["rows_per_warp_step"] <= 32
 
 
+def test_level_traffic_on_band():
+    """The level launch's bytes on a band of three levels in several slabs:
+    the bound reads the level-0 rows and the later levels' idx region rows
+    once (not the padding past a level's last region) and writes the
+    slabs' final rows; by design the shared path also reads its table
+    entries and keeps the intermediates on chip, and the work path writes
+    and reads them back. Operations: one ⊕ a valid slot past its run's
+    first."""
+    op = sell.build_sell(tf.banded_coo(1 << 13, 63, seed=1), PLUS_TIMES, slab_nnz=200_000,
+                         device="cpu")
+    t = sell.level_traffic(op)
+    level0 = sum(lay.levels[0].d_out for lay in op.layouts) * 512
+    later_idx = sum(lv.t_src for lay in op.layouts for lv in lay.levels[1:]) * 512
+    regions = sum(lv.regions[-1][2] for lay in op.layouts for lv in lay.levels[1:]) * 512
+    finals = sum(lay.levels[-1].d_out for lay in op.layouts) * 512
+    assert finals == op.n_pad * 4 and regions < later_idx   # every slab chains here
+    entries = sum(len(lay.levels) - 1 for lay in op.layouts) * 4 * sell.ENTRY_WORDS * 4
+    inter = sum(lv.d_out for lay in op.layouts for lv in lay.levels[1:-1]) * 512
+    assert t["bound_bytes"] == level0 + regions + finals
+    assert t["design_bytes"] == entries + regions + level0 + finals
+    assert t["bound_bytes"] <= t["design_bytes"]
+    assert t["shared_chains"] == len(op.layouts) and t["work_chains"] == 0
+    work = sell.level_traffic(sell.relevel(op, 0))
+    assert work["design_bytes"] == t["design_bytes"] + 2 * inter
+    ops = 0
+    for slab, lay in zip(op.slabs, op.layouts):
+        for li in range(1, len(lay.levels)):
+            ix = slab[f"idx{li}"].numpy()
+            for (w, s0, s1) in lay.levels[li].regions:
+                valid = (ix[s0:s1] < lay.levels[li - 1].d_out).reshape(-1, w, 128)
+                ops += int(valid.sum() - valid.any(1).sum())
+    assert t["operations"] == work["operations"] == ops > 0
+
+
 def test_launch_table_shape():
     """One entry per (slab, level), depth by depth; each depth's rows are
-    the sum of its entries' output rows; the work buffer holds only the
-    non-final levels' outputs (no contrib stream), and a level-0 entry's
-    source is its slab's phase-A stream."""
+    the sum of its entries' output rows; the work buffer holds only level
+    0's non-final outputs and those of the slabs whose later levels do not
+    fit shared memory (no contrib stream, no intermediates of a shared
+    slab), and a level-0 entry's source is its slab's phase-A stream."""
     op = sell.build_sell(MATRICES["multislab"][0](tf), PLUS_TIMES, slab_nnz=8000,
                          device="cpu")
     n_levels = [len(lay.levels) for lay in op.layouts]
@@ -349,12 +376,157 @@ def test_launch_table_shape():
     assert len(op.depth_rows) == op.max_levels == max(n_levels)
     for d, rows in enumerate(op.depth_rows):
         assert rows == sum(lay.levels[d].d_out for lay in op.layouts if d < len(lay.levels))
-    inner = sum(lv.d_out for lay in op.layouts for lv in lay.levels if not lv.final)
-    assert op.work_rows == inner
+    level0 = sum(lay.levels[0].d_out for lay in op.layouts if not lay.levels[0].final)
+    assert op.work_rows == level0   # every slab fits the level block's shared memory
+    mixed = sell.relevel(op, 500)
+    shared = [sum(sell.chain_rows(lay)) <= 500 for lay in op.layouts]
+    assert True in shared and False in shared   # both paths in one launch
+    inner = sum(lv.d_out for lay, sh in zip(op.layouts, shared) if not sh
+                for lv in lay.levels[1:] if not lv.final)
+    assert mixed.work_rows == level0 + inner > level0
+    every = sum(lv.d_out for lay in op.layouts for lv in lay.levels if not lv.final)
+    assert sell.relevel(op, 0).work_rows == every > mixed.work_rows
     a_off = np.cumsum([0] + [lay.t_a for lay in op.layouts])[:-1]
     assert op.table[:len(op.layouts), 2].tolist() == a_off.tolist()
     assert op.table[:len(op.layouts), 3].tolist() == [lay.t_a for lay in op.layouts]
     assert op.idx.shape[0] == sum(lv.t_src for lay in op.layouts for lv in lay.levels)
+
+
+def _one_level(m):
+    """A permutation: no row holds two entries, so level 0 is final and the
+    level launch has nothing to do."""
+    rng = np.random.default_rng(5)
+    return m.coo_from_arrays(np.arange(700), rng.permutation(700),
+                             rng.uniform(0.1, 1.0, 700).astype(np.float32), (700, 700))
+
+
+def _deep(m):
+    """tf.deep_hub_coo in ``m``'s COO: row 0 holds 4,100 entries (more than
+    W_MAX², so it chains through three levels past 0)."""
+    c = tf.deep_hub_coo()
+    return m.coo_from_arrays(c.rows, c.cols, c.vals, c.shape)
+
+
+# (maker, build keywords), by the levels of their deepest slab
+LEVEL_MATRICES = {
+    "one_level": (_one_level, {}),
+    "two_levels": MATRICES["gate"],
+    "three_levels": MATRICES["hub"],
+    "four_levels": (_deep, {}),
+}
+LEVELS = {"one_level": 1, "two_levels": 2, "three_levels": 3, "four_levels": 4}
+
+
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("matrix", sorted(LEVEL_MATRICES))
+def test_level_launch_model_matches_jax(matrix, name):
+    """Matrices of 1, 2, 3 and 4 levels: the kernels' model, with the level
+    launch as built, every slab chained in shared memory and every slab
+    through the work buffer, against the plain dp and JAX's dp_sell (its
+    Pallas kernels in interpret mode): bit for bit."""
+    sr, jsr = get_semiring(name), jax_semiring(name)
+    coo_t, coo_j, kw = _coos(matrix, sr, LEVEL_MATRICES)
+    n, c = coo_t.shape
+    built = sell.build_sell(coo_t, sr, device="cpu", **kw)
+    assert built.max_levels == LEVELS[matrix]
+    x = _x(sr, c, seed=11)
+    ref = js.dp_sell(js.build_sell(coo_j, jsr, **kw), jnp.asarray(x), jsr, n_rows=n)
+    plain = sell.dp_sell_plain(built, torch.from_numpy(x), sr, n_rows=n)
+    _same_bits(plain, ref)
+    for path, op in _level_paths(built).items():
+        got = _kernel_model(op, sell.pad_x2d(op, torch.from_numpy(x), sr), sr)
+        _same_bits(got > 0 if _carrier(sr)[5] else got, ref)
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_levels_model_on_plain_level0(name):
+    """The level launch's model alone, from fused_plain's level-0 rows, on
+    a band with three levels in several slabs and on a multislab matrix
+    whose launch mixes both paths: the plain dp's bits."""
+    sr = get_semiring(name)
+    for matrix in ("band_levels", "multislab"):
+        coo, _, kw = _coos(matrix, sr, BUILD_MATRICES)
+        built = sell.build_sell(coo, sr, device="cpu", **kw)
+        x = torch.from_numpy(_x(sr, coo.shape[1], seed=12))
+        want = sell.dp_sell_plain(built, x, sr, n_rows=coo.shape[0])
+        for path, op in _level_paths(built).items():
+            work, dp = sell.fused_plain(op, sell.pad_x2d(op, x, sr), sr)
+            sell.levels_plain(op, sr, work, dp)
+            assert torch.equal(dp > 0 if _carrier(sr)[5] else dp, want), (matrix, path)
+
+
+@pytest.mark.parametrize("matrix", ["band_levels", "multislab", "hub", "four_levels"])
+def test_chain_table(matrix):
+    """One chain row per slab with a later level: its count of later
+    levels and their entries in depth order; the shared flag where its idx,
+    level-0 and intermediate rows fit the limit (as built, LEVEL_ROWS_MAX;
+    and two lower limits, which put some or every slab on the work path),
+    and level_rows the most of them;
+    a shared slab's intermediates within its rows, each depth reading where
+    the one before wrote; every non-final output that stays in the work
+    buffer at rows of its own, level 0's first in slab order."""
+    make, kw = {**BUILD_MATRICES, **LEVEL_MATRICES}[matrix]
+    built = sell.build_sell(make(tf), PLUS_TIMES, device="cpu", **kw)
+    _check_chains(built, sell.LEVEL_ROWS_MAX)
+    for limit in (500, 0):
+        _check_chains(sell.relevel(built, limit), limit)
+
+
+def _check_chains(op, limit):
+    t = op.table.numpy()
+    entry = {key: e for e, key in enumerate(
+        (si, li) for li in range(op.max_levels) for si, lay in enumerate(op.layouts)
+        if li < len(lay.levels))}
+    chained = [si for si, lay in enumerate(op.layouts) if len(lay.levels) > 1]
+    chains = op.chains.numpy()
+    assert chains.shape == (len(chained), sell.CHAIN_WORDS)
+    level0 = [(int(t[entry[si, 0], 5]), lay.levels[0].d_out) for si, lay in enumerate(op.layouts)
+              if not lay.levels[0].final]
+    assert [r[0] for r in level0] == list(np.cumsum([0] + [r[1] for r in level0])[:-1])
+    most = 0
+    work = list(level0)
+    for c, si in zip(chains, chained):
+        lay = op.layouts[si]
+        later = len(lay.levels) - 1
+        need = sum(sell.chain_rows(lay))
+        assert c[0] == later and c[1] == int(need <= limit)
+        assert list(c[2:2 + later]) == [entry[si, li] for li in range(1, later + 1)]
+        assert not c[2 + later:].any()
+        inter = 0
+        for li in range(1, later + 1):
+            e = t[entry[si, li]]
+            assert e[2] == t[entry[si, li - 1], 5] and e[3] == lay.levels[li - 1].d_out
+            if lay.levels[li].final:
+                assert e[5] == lay.row0 // 128
+            elif c[1]:
+                assert e[5] == inter
+                inter += lay.levels[li].d_out
+            else:
+                work.append((int(e[5]), lay.levels[li].d_out))
+        assert inter == (sell.chain_rows(lay)[1] - lay.levels[0].d_out if c[1] else 0)
+        if c[1]:
+            most = max(most, need)
+    assert op.level_rows == most
+    assert sorted(work)[:len(level0)] == level0
+    work.sort()
+    assert [w[0] for w in work] == list(np.cumsum([0] + [w[1] for w in work])[:-1])
+    assert sum(w[1] for w in work) == op.work_rows
+
+
+def test_relevel_keeps_the_fused_launch():
+    """A new shared-memory limit moves only the later levels' rows: level
+    0's entries and the fused launch's blocks stay; a limit past the
+    level kernel's shared memory is refused."""
+    op = sell.build_sell(MATRICES["multislab"][0](tf), PLUS_TIMES, slab_nnz=8000,
+                         device="cpu")
+    for limit in (0, sell.LEVEL_ROWS_MAX):
+        other = sell.relevel(op, limit)
+        assert torch.equal(other.groups, op.groups) and other.stage_rows == op.stage_rows
+        n = len(op.layouts)
+        assert torch.equal(other.table[:n], op.table[:n])
+        assert other.chains[:, 1].tolist() == [int(limit > 0)] * other.chains.shape[0]
+    with pytest.raises(ValueError):
+        sell.relevel(op, sell.LEVEL_ROWS_MAX + 1)
 
 
 def test_variant_bytes_is_the_hand_sum():
