@@ -8,6 +8,12 @@ and the loop stops at the first converged step or at ``max_iter``.
 The stepped form yields after every step (per-iteration timing records),
 and the checkpointed form solves in chunks and writes its progress to an
 ``.npz`` that a rerun resumes from.
+
+While spans are recorded (``utils/timing.py``), a solve is a
+``fixpoint.solve`` span (attribute ``iterations``) holding, for each step,
+``fixpoint.step`` around the step, ``fixpoint.converged`` around the
+convergence test and its readback, and ``fixpoint.aux`` around an
+``aux_update``. The loop checks once a solve whether to record them.
 """
 
 from __future__ import annotations
@@ -17,6 +23,9 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from sparseharness_tpu_torch.utils import timing
+from sparseharness_tpu_torch.utils.timing import span
 
 
 class FixpointResult(NamedTuple):
@@ -54,6 +63,8 @@ def run_fixpoint(
 
     ``aux_update(aux, x_old, x_new, it)`` optionally threads a side array
     through the loop (e.g. BFS level stamping)."""
+    if timing.RECORDING:
+        return _run_fixpoint_spans(step_fn, x0, convergence, max_iter, aux0, aux_update)
     x, aux, it, done = x0, aux0, 0, False
     while not done and it < max_iter:
         x_new = step_fn(x)
@@ -61,6 +72,23 @@ def run_fixpoint(
         if aux0 is not None and aux_update is not None:
             aux = aux_update(aux, x, x_new, it)
         x, it = x_new, it + 1
+    return FixpointResult(x=x, iterations=it, converged=done, aux=aux)
+
+
+def _run_fixpoint_spans(step_fn, x0, convergence, max_iter, aux0, aux_update) -> FixpointResult:
+    """:func:`run_fixpoint`'s loop, each part in its span."""
+    x, aux, it, done = x0, aux0, 0, False
+    with span("fixpoint.solve") as solve:
+        while not done and it < max_iter:
+            with span("fixpoint.step"):
+                x_new = step_fn(x)
+            with span("fixpoint.converged"):
+                done = bool(convergence(x, x_new))
+            if aux0 is not None and aux_update is not None:
+                with span("fixpoint.aux"):
+                    aux = aux_update(aux, x, x_new, it)
+            x, it = x_new, it + 1
+        solve.set(iterations=it)
     return FixpointResult(x=x, iterations=it, converged=done, aux=aux)
 
 
@@ -74,6 +102,19 @@ def make_stepped_step(step_fn: Callable, convergence: Callable):
     return one_step
 
 
+def _spanned_step(step_fn: Callable, convergence: Callable):
+    """One ``x → (x_new, converged)`` step, the step and the convergence
+    test with its readback each in its span."""
+
+    def one_step(x):
+        with span("fixpoint.step"):
+            x_new = step_fn(x)
+        with span("fixpoint.converged"):
+            return x_new, bool(convergence(x, x_new))
+
+    return one_step
+
+
 def run_fixpoint_stepped(
     step_fn: Callable,
     x0: torch.Tensor,
@@ -83,8 +124,9 @@ def run_fixpoint_stepped(
 ):
     """Host-stepped fixpoint: yields (x, iterations, converged) after every
     step, with one readback of the convergence flag per step (which waits
-    for the step's kernels)."""
-    one_step = make_stepped_step(step_fn, convergence)
+    for the step's kernels); ``fixpoint.step`` and ``fixpoint.converged``
+    spans where they are recorded."""
+    one_step = (_spanned_step if timing.RECORDING else make_stepped_step)(step_fn, convergence)
     x, iters, converged = x0, 0, False
     while iters < max_iter and not converged:
         x, flag = one_step(x)

@@ -11,7 +11,8 @@ just_parser. The flags and their defaults are the JAX commands':
   --sweep            variant × geometry grid
   --jsonl / --sql    append records     --no-gold          skip the gold gate
   --trace            PROFILING_DATUM lines on stderr
-  --profile DIR      a torch.profiler trace of the solve into DIR
+  --profile DIR      a torch.profiler trace of the solve into DIR, with
+                     the program's spans (category ``program``) in it
   --reorder rcm      solve in RCM-permuted space
   --root / --roots / --max-iter / --stepped (fixpoint commands)
 
@@ -163,7 +164,9 @@ def _device(args) -> torch.device:
 def _setup(args):
     """(coo, device): the matrix, read after the device check."""
     if args.trace:
-        os.environ["SPARSEHARNESS_TPU_TRACE"] = "1"
+        from sparseharness_tpu_torch.utils import timing
+
+        timing.set_trace_stream(timing.STDERR)
     device = _device(args)
     from sparseharness_tpu_torch.formats import read_mtx
 
@@ -173,19 +176,35 @@ def _setup(args):
 @contextlib.contextmanager
 def _profile_ctx(args, device: torch.device):
     """A torch.profiler trace of the wrapped solve into --profile DIR (CPU
-    and, on a card, CUDA activity), else nothing."""
+    and, on a card, CUDA activity), with the program's spans recorded over
+    it and written into the trace on its clock, else nothing."""
     if not getattr(args, "profile", None):
         yield
         return
+    import json
+
     from torch.profiler import ProfilerActivity, profile
+
+    from sparseharness_tpu_torch.utils import timing
 
     activities = [ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(args.profile, exist_ok=True)
     with profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(args.profile, "trace.json"))
+        timing.start_recording()
+        try:
+            yield
+        finally:
+            spans = timing.stop_recording()
+    path = os.path.join(args.profile, "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    trace["traceEvents"].extend(
+        spans.chrome_events(int(trace.get("baseTimeNanoseconds", 0)), pid=os.getpid()))
+    with open(path, "w") as f:
+        json.dump(trace, f)
 
 
 def _emit(records, args) -> None:

@@ -8,7 +8,10 @@ Only the sources in the checkout are compiled; a failed build raises.
 
 It also holds what every kernel library shares: the semiring and strip
 type codes of the C interface (as ``csrc/semiring.cuh``), the launch
-counters, and the check of a launch's return code.
+counters, and the check of a launch's return code. Where spans are
+recorded (``utils/timing.py``), each source compiled is a ``kernels.nvcc``
+span (attribute ``source``), from nvcc's start until its output is
+collected.
 """
 
 from __future__ import annotations
@@ -18,10 +21,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 import torch
+
+from sparseharness_tpu_torch.utils.timing import add_span
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "sh_kernels"
@@ -90,13 +96,15 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(srcs[name])]
+        t0 = time.perf_counter_ns()
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
+                       tmp, out, t0)
     reports = {}
     failed = []
-    for name, (proc, tmp, out) in procs.items():
+    for name, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
+        add_span("kernels.nvcc", t0, time.perf_counter_ns(), source=name)
         reports[name] = log
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")

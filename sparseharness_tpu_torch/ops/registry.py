@@ -3,6 +3,13 @@
 A *variant* is a named (build, dp) pair, and a :class:`Geometry` carries
 the block-shape knobs — the analogue of the reference's runfile sweep axis.
 PyTorch runs eagerly, so there is no jitted form of :func:`spmv`.
+
+Spans, where they are recorded (``utils/timing.py``): ``build.auto``
+around :func:`build_operand_auto` (attribute ``variant``, the one built),
+``build.try`` around each variant's build (``variant``, and ``outcome``
+``built`` or ``refused``), ``spmv`` around a call (``variant``) with
+``spmv.dp`` (the variant's dp, through its kernel launch) and
+``spmv.fold`` (:func:`torch_ops.fold_dp`) inside it.
 """
 
 from __future__ import annotations
@@ -18,7 +25,9 @@ from sparseharness_tpu_torch.ops import (
     bsr, bsr_band, bsr_ell, bsr_fused, dia, sell, sell2, torch_ops, verify,
 )
 from sparseharness_tpu_torch.semiring import Semiring
+from sparseharness_tpu_torch.utils import timing
 from sparseharness_tpu_torch.utils.device import DeviceLike
+from sparseharness_tpu_torch.utils.timing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,8 +92,14 @@ def _check_init(coo: COO, sr: Semiring, op, variant: str) -> None:
 
 def build_operand(coo: COO, sr: Semiring, variant: str = "ell",
                   geometry: Geometry = Geometry(), *, device: DeviceLike = None):
-    op = get_variant(variant).build(coo, sr, geometry, device)
-    _check_init(coo, sr, op, variant)
+    with span("build.try", variant=variant) as s:
+        try:
+            op = get_variant(variant).build(coo, sr, geometry, device)
+        except NotImplementedError:
+            s.set(outcome="refused")
+            raise
+        _check_init(coo, sr, op, variant)
+        s.set(outcome="built")
     return op
 
 
@@ -92,14 +107,19 @@ def build_operand_auto(coo: COO, sr: Semiring, geometry: Geometry = Geometry(),
                        *, device: DeviceLike = None):
     """(variant_name, operand) for the first buildable AUTO_CHAIN entry."""
     last = None
-    for name in AUTO_CHAIN:
-        try:
-            op = get_variant(name).build(coo, sr, geometry, device)
-        except NotImplementedError as e:
-            last = e
-            continue
-        _check_init(coo, sr, op, name)
-        return name, op
+    with span("build.auto") as auto:
+        for name in AUTO_CHAIN:
+            with span("build.try", variant=name) as s:
+                try:
+                    op = get_variant(name).build(coo, sr, geometry, device)
+                except NotImplementedError as e:
+                    s.set(outcome="refused")
+                    last = e
+                    continue
+                _check_init(coo, sr, op, name)
+                s.set(outcome="built")
+            auto.set(variant=name)
+            return name, op
     raise NotImplementedError(f"no variant in {AUTO_CHAIN} applies: {last}")
 
 
@@ -116,10 +136,23 @@ def spmv(
 ) -> torch.Tensor:
     """y_out[:n_rows] = (α ⊗ (⊕_j A[i,j] ⊗ x[j])) ⊕ (β ⊗ y[i]), on the
     operand's device."""
+    if timing.RECORDING:
+        return _spmv_spans(operand, x, y, sr, variant, n_rows, alpha, beta)
     dp = get_variant(variant).dp(operand, x, sr, n_rows=n_rows)[:n_rows]
     if y is not None:
         y = y[:n_rows]
     return torch_ops.fold_dp(dp, y, sr, alpha, beta)
+
+
+def _spmv_spans(operand, x, y, sr, variant, n_rows, alpha, beta) -> torch.Tensor:
+    """:func:`spmv`, each part in its span."""
+    with span("spmv", variant=variant):
+        with span("spmv.dp"):
+            dp = get_variant(variant).dp(operand, x, sr, n_rows=n_rows)[:n_rows]
+        if y is not None:
+            y = y[:n_rows]
+        with span("spmv.fold"):
+            return torch_ops.fold_dp(dp, y, sr, alpha, beta)
 
 
 def _dp_ell(op, x, sr, *, n_rows):

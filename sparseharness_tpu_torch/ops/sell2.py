@@ -56,6 +56,7 @@ from sparseharness_tpu_torch.ops.torch_ops import _SEGMENT_IDENTITY, _SEGMENT_RE
 from sparseharness_tpu_torch.semiring import Semiring
 from sparseharness_tpu_torch.semiring.core import _carrier, _np_fold_for
 from sparseharness_tpu_torch.utils.device import DeviceLike, resolve_device
+from sparseharness_tpu_torch.utils.timing import add_span
 
 LANES = 128
 #: columns per x chunk (one (128, 128) tile of x)
@@ -630,10 +631,12 @@ class EncodeRecord:
     seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
     numpy_slabs: int = 0
 
-    def mark(self, stage: str, t0: float) -> float:
-        """Add the time since ``t0`` to ``stage``; returns now."""
-        now = time.perf_counter()
-        self.seconds[stage] = self.seconds.get(stage, 0.0) + now - t0
+    def mark(self, stage: str, t0: int) -> int:
+        """Add the time since ``t0`` (``perf_counter_ns``) to ``stage``, and
+        record that stretch as a ``build.encode`` span; returns now."""
+        now = time.perf_counter_ns()
+        self.seconds[stage] = self.seconds.get(stage, 0.0) + (now - t0) / 1e9
+        add_span("build.encode", t0, now, stage=stage)
         return now
 
 
@@ -658,7 +661,7 @@ def build_sell2(coo: COO, sr: Semiring, value_dtype: str = "float32",
         native_io.load()  # builds the library on first use, outside the stage clocks
     rec = EncodeRecord() if record is None else record
     rec.native = native
-    t = time.perf_counter()
+    t = time.perf_counter_ns()
     n, c = coo.shape
     _, _, _, _, zero, as_int = _carrier(sr)
     np_dtype = np.dtype(np.int32) if as_int else sr.np_dtype

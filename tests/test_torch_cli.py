@@ -163,7 +163,8 @@ def test_profile_writes_trace(mtx, tmp_path):
     assert (prof / "trace.json").stat().st_size > 0
     assert tcli.sssp_main(["-m", mtx["graph"], "-n", "1", "--device", "cpu",
                            "--profile", str(prof / "s")]) == 0
-    assert json.loads((prof / "s" / "trace.json").read_text())
+    events = json.loads((prof / "s" / "trace.json").read_text())["traceEvents"]
+    assert any(e.get("cat") == "program" and e["name"] == "fixpoint.solve" for e in events)
 
 
 def test_trace_flag_emits_profiling_lines(mtx, capfd, monkeypatch):

@@ -5,8 +5,9 @@ the two SpMM kernels (spmm_band, also on X with ±inf and NaN; spmm_tiles
 at m up to 256 through both maps) and the sell fused depth-0
 and level kernels (the level launch on both of its paths), against their
 plain versions on the same CUDA tensors,
-spmv, spmm and multi_sssp launching each kernel, and the sell2 plan made on
-the card against the one made on the CPU. They
+spmv, spmm and multi_sssp launching each kernel, the sell2 plan made on
+the card against the one made on the CPU, and the program's fixpoint
+spans mapped onto a device trace against the launches they hold. They
 skip without a card; run them on one with
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -742,3 +743,53 @@ def test_gloo_two_ranks_share_one_card(cuda):
         np.testing.assert_array_equal(got_b.x, b.x.cpu().numpy())
         np.testing.assert_array_equal(got_b.aux, b.aux.cpu().numpy())
         assert (got_b.iterations, got_b.converged) == (b.iterations, b.converged)
+
+
+@pytest.mark.cuda
+def test_step_spans_hold_their_launches(cuda, tmp_path):
+    """The program's spans mapped onto a device-only torch.profiler trace:
+    every launch of a device op in a short band solve falls inside its
+    ``fixpoint.solve`` span, and each ``fixpoint.step`` span holds the same
+    number of launches, one at least. (The trace's device clock drifts
+    against the host's by tens of µs a second; ``portbench/spans.py``
+    measures and removes that over longer stretches.)"""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from sparseharness_tpu_torch.algorithms import apps
+    from sparseharness_tpu_torch.algorithms.fixpoint import run_fixpoint
+    from sparseharness_tpu_torch.utils import timing
+
+    coo = banded_coo(1 << 11, 15, seed=3)
+    coo = coo.with_values(np.abs(coo.vals) + 0.1)
+    comp = apps.fixpoint_components("sssp", coo, 0, variant="auto", device=cuda)
+
+    def solve():
+        return run_fixpoint(comp.step, comp.x0, convergence=comp.convergence,
+                            max_iter=comp.limit)
+
+    solve()  # builds and loads the kernels
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        timing.start_recording()
+        res = solve()
+        torch.cuda.synchronize()
+        rec = timing.stop_recording()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    trace = json.loads(path.read_text())
+    base = int(trace.get("baseTimeNanoseconds", 0))
+    events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+    device = {e["args"]["correlation"] for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")}
+    launches = [e["ts"] for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and e.get("args", {}).get("correlation") in device]
+    assert rec[0].name == "fixpoint.solve" and launches
+    lo, hi = rec.trace_us(rec[0].start_ns, base), rec.trace_us(rec[0].end_ns, base)
+    assert all(lo <= t <= hi for t in launches)
+    steps = [(rec.trace_us(s.start_ns, base), rec.trace_us(s.end_ns, base))
+             for s in rec if s.name == "fixpoint.step"]
+    assert len(steps) == res.iterations > 1
+    held = [sum(a <= t <= b for t in launches) for a, b in steps]
+    assert min(held) >= 1 and len(set(held)) == 1, held
