@@ -3,30 +3,35 @@
 
 Run from the repository root on a machine with a CUDA card and nvcc:
 
-    python3 scripts/probe_sell2_stages_cuda.py
+    python3 scripts/probe_sell2_stages_cuda.py [--matrix ragged|kron20]
 
-On bench.py's ragged matrix, power_law_coo(500000, 2000000, alpha=1.5,
-seed=13), in f32 plus_times, it checks the kernel against its plain version
-once, then prints one JSON line: the call's device ms (CUDA events, the
-median of five 20-call windows) and the host's enqueue ms per call,
-torch.profiler's device ms per launch of the panel and row stages, and the
-row stage again run twice more from copies of the plan's launch: with no
+``ragged`` is bench.py's ragged matrix, power_law_coo(500000, 2000000,
+alpha=1.5, seed=13); ``kron20`` the benchmark's Graph500 Kronecker graph
+at scale 20 (portbench/configs/g500-kron-s20.json), made on the card. In
+f32 plus_times it checks the kernel against its plain version once, then
+prints one JSON line: the call's device ms (CUDA events, the median of
+five 20-call windows) and the host's enqueue ms per call,
+torch.profiler's device ms per launch of the panel and row stages, and
+the stages again from copies of the plan's launch: the row stage with no
 overflow pieces (the plain output rows alone) and with 1,024 output rows
-(the pieces and their owners' folds alone). Those two runs write scratch,
-not a dp. The card's name and power limit come first, from nvidia-smi.
-Imports only the port.
+(the pieces and their owners' folds alone). Those runs write scratch,
+not a dp. Then the plan's counts: runs, pieces and owners. The card's
+name and power limit come first, from nvidia-smi. Imports only the port
+and, for ``kron20``, the benchmark's graph generator.
 """
 
+import argparse
 import ctypes
 import json
-import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
 
 
 def stage_ms(torch, fn, n: int = 20) -> dict:
@@ -48,20 +53,36 @@ def stage_ms(torch, fn, n: int = 20) -> dict:
     return out
 
 
+def matrix(name: str):
+    from sparseharness_tpu_torch.formats import coo_from_arrays, power_law_coo
+
+    if name == "ragged":
+        return "power_law_coo(500000, 2000000, alpha=1.5, seed=13)", power_law_coo(
+            500_000, 2_000_000, alpha=1.5, seed=13)
+    from portbench.graphs import kronecker
+
+    cfg = json.loads((ROOT / "portbench" / "configs" / "g500-kron-s20.json").read_text())
+    rows, cols, vals, n = kronecker.make(cfg["params"], 0, "cuda")
+    coo = coo_from_arrays(rows.cpu().numpy(), cols.cpu().numpy(), vals.cpu().numpy(), (n, n))
+    return "g500-kron-s20", coo
+
+
 def main() -> int:
     import torch
 
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--matrix", choices=("ragged", "kron20"), default="ragged")
+    args = p.parse_args()
     if not torch.cuda.is_available():
         print("probe_sell2_stages_cuda: no CUDA device is available", file=sys.stderr)
         return 1
-    from sparseharness_tpu_torch.formats import power_law_coo
     from sparseharness_tpu_torch.ops import _build, sell2
     from sparseharness_tpu_torch.semiring import PLUS_TIMES
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True, capture_output=True,
                          text=True).stdout.strip(), flush=True)
-    coo = power_law_coo(500_000, 2_000_000, alpha=1.5, seed=13)
+    label, coo = matrix(args.matrix)
     op = sell2.build_sell2(coo, PLUS_TIMES, device="cuda")
     x = torch.from_numpy(np.random.default_rng(13).uniform(0.1, 1.0, coo.shape[1])
                          .astype(np.float32)).cuda()
@@ -95,13 +116,14 @@ def main() -> int:
             _build.SR_CODES["plus_times"], stream))
 
     print(json.dumps({
-        "matrix": "power_law_coo(500000, 2000000, alpha=1.5, seed=13)", "value": "float32",
+        "matrix": label, "value": "float32",
         "ms": float(np.median(dev)), "ms_windows": dev, "enqueue_ms": float(np.median(host)),
         "stages": stage_ms(torch, call),
         "row_stage_plain_rows_only": stage_ms(torch, part(n_pieces=0)).get("sell2_row_kernel"),
         "row_stage_pieces_only": stage_ms(torch, part(n_final=1024)).get("sell2_row_kernel"),
-        "pieces": plan.launch.n_pieces, "owners": int(plan.owners.shape[0]),
-        "pieces_per_owner_max": int((plan.owners[:, 2] - plan.owners[:, 1]).max()),
+        "runs": plan.n_runs, "pieces": plan.launch.n_pieces, "owners": int(plan.owners.shape[0]),
+        "pieces_per_owner_max": int((plan.owners[:, 2] - plan.owners[:, 1]).max())
+        if plan.owners.numel() else 0,
     }), flush=True)
     return 0
 

@@ -47,32 +47,45 @@
 //     read each stream row at about the same time.
 // (2) Row stage: one warp per overflow piece row loads its runs (at most
 //     256, 8 a lane) at once and one lane folds them in order from shared
-//     memory, so the pieces of a hub row, a third of all runs here, spread
-//     over the card. The block that finishes an owner's last piece (a count
-//     per owner, which only says who folds) stages the owner's piece values
-//     with all its threads, and one thread folds them in order and writes
-//     the row. One thread per other output row reduces its runs, loading
-//     them in batches. The dp of the old design (a row launch and a
-//     fold launch) is never written.
+//     memory, so the pieces of a hub row spread over the card. That lane's
+//     fold issues its instructions alone, so it takes eight values in two
+//     16-byte loads and folds eight with no layout opening among them (the
+//     most) in eight adds. The block that finishes an owner's last piece (a
+//     count per owner, which only says who folds) stages the owner's piece
+//     values with all its threads, and one thread folds them in order and
+//     writes the row. One thread per other output row reduces its runs,
+//     loading them in batches. The dp of the old design (a row launch and
+//     a fold launch) is never written.
 // Every ⊕ has a fixed order, so every semiring, plus_times included, gives
 // the plain torch version's bits on every run.
 //
 // What bounds it. The least traffic is bytes: the stream, x and the
 // output once, 0.0135 ms at the ragged bench shape. The panel stage reads
 // wordB and vals once (8 B a slot in f32, 6 in bf16), the plan's slot
-// words (2 B a run slot) and x through L2, and writes one value a run; wordA
-// and chunk are read by the plan once, not by a call. The four lane groups
-// of a panel gather the same x blocks again, so x moves through L2 several
-// times. The row stage reads the row pointers, the row-sorted run ids and
-// the run values and writes the output once, but its time is set by a
-// chain: the largest owner's pieces wait on three dependent loads each,
-// then one thread folds 1,043 piece values in order, which bit-exactness
-// with the plain version asks for. The operations, one ⊗ a slot and about
-// one ⊕ a run slot, are far below the card's. Measured on an NVIDIA H100
-// 80GB HBM3 at 700 W at power_law_coo(500000, 2000000, alpha=1.5,
-// seed=13) in f32 (scripts/probe_sell2_stages_cuda.py): 0.035 ms a call,
-// the panel stage 0.016 ms of it; the previous design, a panel, a row
-// and a fold kernel, took 0.094–0.103 ms.
+// words (2 B a run slot) and x through L2, and writes one value a run,
+// coalesced; wordA and chunk are read by the plan once, not by a call. The
+// four lane groups of a panel gather the same x blocks again, so x moves
+// through L2 several times. The row stage reads the row pointers and the
+// row-sorted run ids in order, but each run value with a load of its own:
+// a row's runs lie in as many panels, so each 4-byte value costs a 32-byte
+// sector, and the count of such loads, one a run, bounds the stage. On the
+// Graph500 Kronecker graph at scale 20 (25.2 M runs, 17.3 M of them in
+// 87,020 pieces of 21,700 hub rows) that is 6–7 ps a run over the card
+// beyond reading the values in order. Writing each run value at its place
+// in row order instead, so that the row stage reads a row's values in one
+// stretch, scatters the same count of 4-byte stores from the panel stage,
+// which L2 does not merge: 12–14 ps a run, a loss of about 300 µs a call
+// there (PERF.md §6 has the probe runs). The operations, one ⊗ a slot and
+// about one ⊕ a run slot, are far below the card's. Measured on an NVIDIA
+// H100 80GB HBM3 at 700 W in f32 plus_times
+// (chip_smoke.py, scripts/probe_sell2_stages_cuda.py): at
+// power_law_coo(500000, 2000000, alpha=1.5, seed=13), 0.033–0.035 ms a
+// call, the panel stage 0.0165 and the row stage 0.0196–0.0227 (0.0230
+// before the lean fold), where one thread's fold of a 1,043-piece owner
+// sets the row stage; the previous design, a panel, a row and a fold
+// kernel, took 0.094–0.103 ms. At the Kronecker graph, the panel stage
+// 0.290 ms and the row stage 0.291 (its pieces alone 0.213–0.218, its
+// plain rows alone 0.096–0.099; 0.375 before the lean fold).
 // PERF.md §6 #7 has the full record.
 //
 // Semirings, loads and bit-exactness: semiring.cuh.
@@ -104,6 +117,10 @@ constexpr int kGroupLanes = 32;                     // lanes a panel block owns
 constexpr int kGroupSlots = kLanes * kGroupLanes;   // its products
 constexpr int kPanelThreads = 256;
 constexpr int kPanelWarps = kPanelThreads / 32;
+// four panel blocks an SM (at most 64 registers a thread): 0.290 against
+// 0.303 ms a panel stage at the Kronecker shape where ptxas chose freely
+// (56 registers, the same four blocks), and five spill
+constexpr int kPanelMinBlocks = 4;
 constexpr int kBlockChunkCap = 32;                  // as ops/sell2.py:BLOCK_CHUNK_CAP
 constexpr int kChunksPerWarp = kBlockChunkCap / kPanelWarps;
 constexpr int kRowThreads = 256;
@@ -117,7 +134,10 @@ constexpr int kIdMask = 0x7fffffff;                 // row_runs: run id; bit 31 
 // Programmatic dependent launch (sm_90): the row stage is launched to start
 // while the panel stage runs, and waits here, after loading its plan
 // tables, until the panel stage's run values are written and visible.
-// Every thread of the row stage passes here, so it never ends first.
+// Every thread of the row stage passes here, so it never ends first. The
+// row stage's run_vals pointer is not __restrict__: through a read-only
+// restrict pointer the compiler may issue a load of run values whose
+// address it already has above the wait.
 __device__ __forceinline__ void wait_for_panel_stage() {
   asm volatile("griddepcontrol.wait;" ::: "memory");
 }
@@ -131,7 +151,7 @@ __device__ __forceinline__ void store4(int* p, const int (&v)[4]) {
 }
 
 template <int SR, typename S>
-__global__ void __launch_bounds__(kPanelThreads)
+__global__ void __launch_bounds__(kPanelThreads, kPanelMinBlocks)
 sell2_panel_kernel(const Sell2Plan plan, const typename Op<SR>::T* __restrict__ x,
                    long long n_x, typename Op<SR>::T* __restrict__ run_vals) {
   using O = Op<SR>;
@@ -237,7 +257,7 @@ sell2_panel_kernel(const Sell2Plan plan, const typename Op<SR>::T* __restrict__ 
 // out tiles accumulate them; one thread, kRowBatch run loads in flight
 template <int SR>
 __device__ __forceinline__ typename Op<SR>::T row_value(
-    const Sell2Plan& plan, const typename Op<SR>::T* __restrict__ run_vals, int row) {
+    const Sell2Plan& plan, const typename Op<SR>::T* run_vals, int row) {
   using O = Op<SR>;
   using T = typename O::T;
   const int k0 = __ldg(plan.row_ptr + row), k1 = __ldg(plan.row_ptr + row + 1);
@@ -265,33 +285,6 @@ __device__ __forceinline__ typename Op<SR>::T row_value(
   return k0 < k1 ? O::add(total, part) : total;
 }
 
-// In order from shared memory, by one lane, 8 values loaded at a time:
-// part ⊕= v[j], first closing the layout's partial into total where bit j
-// of `opens` is set
-template <int SR>
-__device__ __forceinline__ void fold_runs(const typename Op<SR>::T* v, const unsigned* opens,
-                                          int n, typename Op<SR>::T& total,
-                                          typename Op<SR>::T& part) {
-  using O = Op<SR>;
-  using T = typename O::T;
-  for (int j0 = 0; j0 < n; j0 += 8) {
-    T t[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) t[i] = v[j0 + i];
-    const unsigned bits = opens[j0 >> 5] >> (j0 & 31);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      if (j0 + i < n) {
-        if ((bits >> i) & 1u) {
-          total = O::add(total, part);
-          part = O::zero();
-        }
-        part = O::add(part, t[i]);
-      }
-    }
-  }
-}
-
 __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
   const float4 t = *reinterpret_cast<const float4*>(p);
   v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
@@ -300,6 +293,40 @@ __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
 __device__ __forceinline__ void load4(const int* p, int (&v)[4]) {
   const int4 t = *reinterpret_cast<const int4*>(p);
   v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+
+// In order from 16-byte aligned shared memory, by one lane: part ⊕= v[j],
+// first closing the layout's partial into total where bit j of `opens` is
+// set. One lane folding is bound by the instructions it issues, so eight
+// values come in two 16-byte loads, and eight with no bit set (most: a
+// layout opens a few times a row) fold in eight adds, with no test a value.
+template <int SR>
+__device__ __forceinline__ void fold_runs(const typename Op<SR>::T* v, const unsigned* opens,
+                                          int n, typename Op<SR>::T& total,
+                                          typename Op<SR>::T& part) {
+  using O = Op<SR>;
+  using T = typename O::T;
+  for (int j0 = 0; j0 < n; j0 += 8) {
+    T t[2][4];
+    load4(v + j0, t[0]);
+    load4(v + j0 + 4, t[1]);
+    const unsigned bits = (opens[j0 >> 5] >> (j0 & 31)) & 0xffu;
+    if (bits == 0 && j0 + 8 <= n) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) part = O::add(part, t[i >> 2][i & 3]);
+      continue;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (j0 + i < n) {
+        if ((bits >> i) & 1u) {
+          total = O::add(total, part);
+          part = O::zero();
+        }
+        part = O::add(part, t[i >> 2][i & 3]);
+      }
+    }
+  }
 }
 
 // acc ⊕ v[0] ⊕ ... ⊕ v[n − 1] in order, by one thread, from 16-byte aligned
@@ -327,7 +354,7 @@ __device__ __forceinline__ typename Op<SR>::T fold_values(const typename Op<SR>:
 // every lane gets the value
 template <int SR>
 __device__ __forceinline__ typename Op<SR>::T warp_row_value(
-    const Sell2Plan& plan, const typename Op<SR>::T* __restrict__ run_vals, int row,
+    const Sell2Plan& plan, const typename Op<SR>::T* run_vals, int row,
     int lane, typename Op<SR>::T* sv, unsigned* so) {
   using O = Op<SR>;
   using T = typename O::T;
@@ -366,7 +393,7 @@ __device__ __forceinline__ typename Op<SR>::T warp_row_value(
 // another). Then one thread per other output row, out[r] = dp[r].
 template <int SR>
 __global__ void __launch_bounds__(kRowThreads)
-sell2_row_kernel(const Sell2Plan plan, const typename Op<SR>::T* __restrict__ run_vals,
+sell2_row_kernel(const Sell2Plan plan, const typename Op<SR>::T* run_vals,
                  typename Op<SR>::T* __restrict__ piece_vals,
                  typename Op<SR>::T* __restrict__ out) {
   using O = Op<SR>;

@@ -861,7 +861,8 @@ def _work_items(item_chunks: np.ndarray, item_c0: np.ndarray) -> np.ndarray:
 def make_plan(slabs, layouts, n_chunks: int, piece_owner, virt_blocks, base_pad: int,
               device: torch.device) -> Sell2Plan:
     """The kernel's plan, decoded once from wordA and wordB in torch on
-    ``device``, with the launch's arguments."""
+    ``device``, with the launch's arguments. Each temporary is dropped once
+    used: on the card they set the build's peak memory."""
     starts, n_out = _row_starts(layouts)
     ptrs, xbase, stores = [], [], set()
     g_all, l_all, lev_all, row_all, lay_all, a_all, t_all = [], [], [], [], [], [], []
@@ -881,8 +882,8 @@ def make_plan(slabs, layouts, n_chunks: int, piece_owner, virt_blocks, base_pad:
         g_all.append(g0 + p)
         l_all.append(l)
         lev_all.append(level)
-        row_all.append(starts[lay.row0] + o * LANES + l)
-        lay_all.append(torch.full_like(p, li))
+        row_all.append((starts[lay.row0] + o * LANES + l).to(torch.int32))
+        lay_all.append(torch.full_like(p, li, dtype=torch.int32))
         xbase.append(_xbase(slab, lay, n_chunks, virt_blocks))
         vals = slab["vals"]
         stores.add(vals.dtype)
@@ -895,7 +896,10 @@ def make_plan(slabs, layouts, n_chunks: int, piece_owner, virt_blocks, base_pad:
         raise ValueError(f"mixed value types {stores}")
 
     def cat(parts):
-        return torch.cat(parts) if parts else torch.zeros(0, dtype=torch.int64, device=device)
+        """The parts in one tensor; the list is emptied, freeing them."""
+        out = torch.cat(parts) if parts else torch.zeros(0, dtype=torch.int64, device=device)
+        parts.clear()
+        return out
 
     def ptr(counts):
         out = torch.zeros(counts.numel() + 1, dtype=torch.int64, device=device)
@@ -922,22 +926,35 @@ def make_plan(slabs, layouts, n_chunks: int, piece_owner, virt_blocks, base_pad:
     ws = w[order]
     pos = item_c0[item[order]] * CHUNK_SLOTS + torch.cumsum(ws, 0) - ws - slot_before[
         item[order]]
+    del g, item, order, ws, slot_before
     n_chunk = int(item_chunks.sum())
     rep = torch.repeat_interleave(torch.arange(n_runs, device=device), w)
     word = a * GROUP_LANES + l[rep] % GROUP_LANES + torch.where(
         t == 0, (level[rep] + 1) << 12, 0)
+    del a, l, level, w
     slot_word = torch.zeros(n_chunk * CHUNK_SLOTS, dtype=torch.int64, device=device)
     slot_word[pos[run_id[rep]] + t] = word
+    del rep, word, t
+    slot_word = torch.where(slot_word >= 1 << 15, slot_word - (1 << 16),
+                            slot_word).to(torch.int16)
     chunk_run0 = torch.searchsorted(
-        pos, torch.arange(n_chunk + 1, device=device) * CHUNK_SLOTS)
+        pos, torch.arange(n_chunk + 1, device=device) * CHUNK_SLOTS).to(torch.int32)
+    del pos
     blocks = _work_items(item_chunks.cpu().numpy(), item_c0.cpu().numpy())
 
     # the row stage: each dp row's runs in (layout, panel) order
     by_row = torch.argsort(row, stable=True)
     row_s, lay_s = row[by_row], run_lay[by_row]
+    del run_lay
     opens = torch.zeros(n_runs, dtype=torch.bool, device=device)
     opens[1:] = (row_s[1:] == row_s[:-1]) & (lay_s[1:] != lay_s[:-1])
-    row_runs = torch.where(opens, run_id[by_row] - (1 << 31), run_id[by_row])
+    del row_s, lay_s
+    row_runs = run_id[by_row].to(torch.int32)
+    del run_id, by_row
+    row_runs[opens] |= -(1 << 31)  # bit 31: the run opens a layout
+    del opens
+    row_ptr = ptr(torch.bincount(row, minlength=n_out)).to(torch.int32)
+    del row
 
     if piece_owner is not None:
         n_final = base_pad
@@ -963,11 +980,10 @@ def make_plan(slabs, layouts, n_chunks: int, piece_owner, virt_blocks, base_pad:
                     ).to(device),
         xbase=xb.to(torch.int32).contiguous(),
         blocks=torch.from_numpy(blocks).reshape(-1, 4).to(device),
-        slot_word=torch.where(slot_word >= 1 << 15, slot_word - (1 << 16),
-                              slot_word).to(torch.int16),
-        chunk_run0=chunk_run0.to(torch.int32),
-        row_ptr=ptr(torch.bincount(row, minlength=n_out)).to(torch.int32),
-        row_runs=row_runs.to(torch.int32),
+        slot_word=slot_word,
+        chunk_run0=chunk_run0,
+        row_ptr=row_ptr,
+        row_runs=row_runs,
         owners=owners.to(torch.int32).contiguous(),
         piece_slot=piece_slot.to(torch.int32),
         owner_bits=_int32_bits(owner_bits),

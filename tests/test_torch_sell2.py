@@ -399,6 +399,56 @@ def test_plan_work_items_hold_every_run_once(matrix):
     assert int(plan.chunk_run0[-1]) == plan.n_runs
 
 
+def _runs_from_layouts(op):
+    """(row, layout, panel, id) of every run, found without the plan's row
+    lists: each run of each layout from its routes (sell2._layout_runs),
+    matched by (panel, lane, align sublane of its first slot) to the run
+    that the slot words start in the work items, whose id counts from the
+    chunk's first."""
+    plan = op.plan
+    starts, _ = sell2._row_starts(op.layouts)
+    launched = [(s, lay) for s, lay in zip(op.slabs, op.layouts) if lay.panels]
+    run_of = {}
+    g0 = 0
+    for li, (slab, lay) in enumerate(launched):
+        p, l, o, off, _ = sell2._layout_runs(slab, lay)
+        word = slab["wordA"].view(lay.panels, 128, 128)[p, l, off & 127].long()
+        a = torch.where(off < 128, word & 127, (word >> 7) & 127)
+        for pi, li_, oi, ai in zip(p.tolist(), l.tolist(), o.tolist(), a.tolist()):
+            run_of[(g0 + pi, li_, ai)] = (starts[lay.row0] + oi * 128 + li_, li, g0 + pi)
+        g0 += lay.panels
+    words = plan.slot_word.long().view(-1, 128) & 0xFFFF
+    run0 = plan.chunk_run0.long()
+    runs = []
+    for g, q, c0, c1 in plan.blocks.tolist():
+        for c in range(c0, c1):
+            for i, slot in enumerate(torch.nonzero(words[c] >> 12).flatten().tolist()):
+                w = int(words[c, slot]) & 0xFFF
+                runs.append(run_of[(g, q * sell2.GROUP_LANES + (w & 31), w >> 5)]
+                            + (int(run0[c]) + i,))
+    assert len(runs) == plan.n_runs == len(run_of)
+    return runs
+
+
+@pytest.mark.parametrize("matrix", ["hub_row", "pieces", "virtual", "multi_slab"])
+def test_plan_row_lists_rebuilt_from_layouts(matrix):
+    """The row order rebuilt independently of the plan's row lists: row r's
+    runs, row_runs[row_ptr[r]:row_ptr[r + 1]], in (layout, panel) order,
+    and bit 31 set on exactly each layout's first run in a row, the row's
+    first run aside."""
+    op = sell2.build_sell2(MATRICES[matrix](tf), PLUS_TIMES, device="cpu")
+    plan = op.plan
+    runs = sorted(_runs_from_layouts(op))
+    e = plan.row_runs.long()
+    assert (e & 0x7FFFFFFF).tolist() == [run[3] for run in runs]
+    opens = [k > 0 and runs[k][0] == runs[k - 1][0] and runs[k][1] != runs[k - 1][1]
+             for k in range(len(runs))]
+    assert (e < 0).tolist() == opens and any(opens)
+    rp = plan.row_ptr.long()
+    row_at = torch.repeat_interleave(torch.arange(plan.n_out), rp[1:] - rp[:-1])
+    assert row_at.tolist() == [run[0] for run in runs]
+
+
 @pytest.mark.parametrize("matrix", ["hub_row", "pieces"])
 def test_plan_reaches_every_piece_once_from_its_owner(matrix):
     op = sell2.build_sell2(MATRICES[matrix](tf), PLUS_TIMES, device="cpu")
