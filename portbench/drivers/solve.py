@@ -19,7 +19,7 @@ from typing import List
 
 import torch
 
-from portbench import generator, trace as tracing
+from portbench import generator, spans, trace as tracing
 from portbench.harness import Reservoir, log, now, sync
 
 #: the benchmark's ranges around the step and the convergence test that
@@ -106,6 +106,8 @@ class Driver:
         self.ctx.trace, _ = self._stretch(traffic, tracing.Tracer())
         self.ctx.range_trace, self.ctx.traced_steps = self._stretch(
             traffic, tracing.Tracer(RANGES, host=True))
+        self.ctx.span_trace, _ = self._stretch(spans.stretch_traffic(traffic),
+                                               spans.SpanTracer())
 
     def _stretch(self, traffic: dict, tracer):
         from torch.profiler import record_function

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from portbench import generator, trace as tracing
+from portbench import generator, spans, trace as tracing
 from portbench.harness import Reservoir, log, now, sync
 
 #: the benchmark's range around each call of the range stretch
@@ -85,6 +85,8 @@ class Driver:
         self.ctx.trace, _ = self._stretch(traffic, tracing.Tracer())
         self.ctx.range_trace, self.ctx.traced_calls = self._stretch(
             traffic, tracing.Tracer(RANGES, host=True))
+        self.ctx.span_trace, _ = self._stretch(spans.stretch_traffic(traffic),
+                                               spans.SpanTracer())
 
     def _stretch(self, traffic: dict, tracer):
         from torch.profiler import record_function

@@ -10,6 +10,21 @@ its algorithm). The cell's comparison limits are ``limits/<cell>.json``
 and its per-layer metrics ``metrics/<metric>.py``. Nothing here names a
 cell, a configuration, a traffic mix, a reference or a metric.
 
+So a configuration is added by new files and entries alone:
+
+- ``configs/<config>.json``: its ``generator``, the ``params`` it runs at,
+  its ``route``, and ``tiny``, the ``params`` that the benchmark's CPU
+  tests cut it to (a run never reads ``tiny``);
+- ``graphs/<generator>.py``, where no configuration uses that generator yet;
+- ``limits/<cell>.json`` for each of its cells;
+- its entries in ``BENCHMARK.json``: the configuration, its cells, and the
+  cells in the ``workloads`` lists of the metrics they report.
+
+A traced run records the program's spans (``utils/timing.py``) around the
+build, and adds three stretches after the window: the device alone, the
+host's ranges, and then the program's spans over the device alone
+(``spans.py``). The untraced run records nothing.
+
 The program is driven as a user drives it, with ``variant="auto"``.
 """
 
@@ -26,7 +41,7 @@ from typing import List, Optional
 
 import torch
 
-from portbench import trace as tracing, work
+from portbench import spans, trace as tracing, work
 
 HERE = Path(__file__).resolve().parent
 #: modules that may not be loaded in a run, by whole top-level name
@@ -134,6 +149,8 @@ class Ctx:
     range_trace: Optional[tracing.Trace] = None  # the range stretch
     traced_calls: int = 0       # SpMV calls of the range stretch
     traced_steps: int = 0       # fixpoint steps of the range stretch
+    build_spans: Optional[list] = None                # the build's spans (a timing.Recording)
+    span_trace: Optional[spans.SpanTrace] = None      # the span stretch
 
     @property
     def bound_s(self) -> float:
@@ -157,6 +174,7 @@ def run_cell(bench: Bench, name: str, seed: int, seconds: float, trace: bool,
     precision control."""
     from sparseharness_tpu_torch.formats.sparse import COO
     from sparseharness_tpu_torch.ops import Geometry, _build
+    from sparseharness_tpu_torch.utils import timing
 
     t0 = now() if t0 is None else t0
     device = torch.device(device)
@@ -186,9 +204,14 @@ def run_cell(bench: Bench, name: str, seed: int, seconds: float, trace: bool,
     ctx = Ctx(name, traffic, n, folded)
     d = driver.Driver(ctx, coo, requests, geometry, device, seed, reference)
     held = torch.cuda.memory_allocated(device) if on_cuda else 0
+    if trace:
+        timing.start_recording()
     tb = now()
-    d.build()
-    sync(device)
+    try:
+        d.build()
+        sync(device)
+    finally:
+        ctx.build_spans = timing.stop_recording() if trace else None
     ctx.build_s = now() - tb
     held = torch.cuda.memory_allocated(device) - held if on_cuda else None
     tw = now()
@@ -203,12 +226,16 @@ def run_cell(bench: Bench, name: str, seed: int, seconds: float, trace: bool,
     mem_peak = torch.cuda.max_memory_allocated(device) if on_cuda else 0
     route = route_record(cfg, d, held)
     if trace:
+        tt = now()
         d.traced(traffic)
         tr = ctx.range_trace
-        log(f"trace: device stretch {len(ctx.trace.ops)} device ops, {ctx.trace.window_s:.3f} s; "
+        log(f"trace: {now() - tt:.3f} s for the three stretches and their reading; "
+            f"device stretch {len(ctx.trace.ops)} device ops, {ctx.trace.window_s:.3f} s; "
             f"range stretch {len(tr.ops)} device ops, {sum(not op.range for op in tr.ops)} not "
             f"tied to a launch, {sum(op.range == tracing.OUTSIDE for op in tr.ops)} launched "
-            f"outside the ranges, {len(tr.ranges)} ranges, {tr.window_s:.3f} s")
+            f"outside the ranges, {len(tr.ranges)} ranges, {tr.window_s:.3f} s; "
+            f"span stretch {len(ctx.span_trace.ops)} device ops, {len(ctx.span_trace.spans)} "
+            f"spans, {ctx.span_trace.window_s:.3f} s")
     d.release()
     if on_cuda:
         torch.cuda.empty_cache()
@@ -238,6 +265,7 @@ def run_cell(bench: Bench, name: str, seed: int, seconds: float, trace: bool,
         dev["busy_s"] = tracing.busy_s(ctx.trace)
         dev["window_s"] = ctx.trace.window_s
         result["breakdown"] = {"device_ops": tracing.top_ops(ctx.trace),
-                               "idle_gaps": tracing.idle_gaps(ctx.range_trace)}
+                               "idle_gaps": tracing.idle_gaps(ctx.range_trace),
+                               "idle_spans": spans.idle_spans(ctx.span_trace)}
     result["checks"] = {k: {"value": v, "limit": lim} for k, (v, lim) in checks.items()}
     return {"result": result, "route": route, "checks": checks}

@@ -59,6 +59,11 @@ class SpanTrace(NamedTuple):
     clock_us: Optional[Tuple[float, float]] = None
 
 
+#: seconds of the span stretch at most, whatever the traffic's
+#: ``trace_seconds``: it runs after the device and range stretches, and
+#: its readings are means over some hundreds of steps or calls at this
+#: length (a Kronecker solve step takes about 0.7 ms)
+STRETCH_SECONDS = 0.5
 #: device synchronisations stamped at each end of a span stretch
 MARKS = 5
 #: µs around a mark's stamps in which its synchronisation event is sought
@@ -146,6 +151,12 @@ def parse(events: list, recording, base_ns: int, window_s: float, marks=()) -> S
             u0, u1 = u0 + shift(u0), u1 + shift(u1)
         spans.append(MappedSpan(s.name, u0, u1, s.parent, s.attrs))
     return SpanTrace(spans, ops, window_s, recording.drift_ns, clock)
+
+
+def stretch_traffic(traffic: dict) -> dict:
+    """The traffic as the span stretch runs it: its ``trace_seconds`` cut
+    to :data:`STRETCH_SECONDS`."""
+    return dict(traffic, trace_seconds=min(float(traffic["trace_seconds"]), STRETCH_SECONDS))
 
 
 def _mark(torch) -> Tuple[int, int]:

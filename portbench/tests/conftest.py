@@ -13,31 +13,44 @@ ROOT = Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
-#: each configuration cut to a size a CPU test holds
-TINY = {"g500-kron-s20": {"scale": 10}, "band-n19-b63": {"n": 4096, "bandwidth": 7}}
 
-
-def tiny_tree(dest: Path) -> Path:
-    """A copy of ``BENCHMARK.json`` and ``portbench/`` under ``dest``,
-    each configuration's file cut to its TINY size."""
-    shutil.copytree(ROOT / "portbench", dest / "portbench",
+def tiny_tree(dest: Path, src: Path = ROOT) -> Path:
+    """A copy of ``BENCHMARK.json`` and ``portbench/`` of the tree ``src``
+    under ``dest``, each configuration's ``params`` cut to the size its file
+    gives under ``tiny``. A configuration whose file has no ``tiny`` is left
+    out of the copy with its cells, so that it fails
+    ``test_every_configuration_has_a_tiny_size`` (and its own cells' tests)
+    and not every test that takes the fixture."""
+    shutil.copytree(src / "portbench", dest / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
-    shutil.copy(ROOT / "BENCHMARK.json", dest / "BENCHMARK.json")
-    spec = json.loads((dest / "BENCHMARK.json").read_text())
+    spec = json.loads((src / "BENCHMARK.json").read_text())
+    kept = []
     for c in spec["configs"]:
         path = dest / c["file"]
         cfg = json.loads(path.read_text())
-        cfg["params"].update(TINY[c["name"]])
-        path.write_text(json.dumps(cfg))
+        if isinstance(cfg.get("tiny"), dict):
+            cfg["params"].update(cfg["tiny"])
+            path.write_text(json.dumps(cfg))
+            kept.append(c)
+    names = {c["name"] for c in kept}
+    spec["configs"] = kept
+    spec["workloads"] = [w for w in spec["workloads"] if w["config"] in names]
+    (dest / "BENCHMARK.json").write_text(json.dumps(spec))
     return dest
 
 
 @pytest.fixture
-def tiny(tmp_path):
-    """A ``harness.Bench`` over a tiny copy of the benchmark."""
+def bench_source():
+    """The tree that ``tiny`` cuts down: the repository's own."""
+    return ROOT
+
+
+@pytest.fixture
+def tiny(tmp_path, bench_source):
+    """A ``harness.Bench`` over a tiny copy of ``bench_source``'s benchmark."""
     from portbench import harness
 
-    root = tiny_tree(tmp_path)
+    root = tiny_tree(tmp_path / "tiny", bench_source)
     return harness.Bench(root, root / "portbench")
 
 

@@ -13,9 +13,9 @@ from conftest import ROOT
 from portbench import harness
 
 CELLS = [w["name"] for w in json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"]]
-#: per-layer metrics that only a device trace can give
-DEVICE_ONLY = {"kernel_roofline.spmv", "kernel_roofline.solve", "device_idle.spmv",
-               "device_idle.solve"}
+#: per-layer metrics that only a device trace can give: none on the CPU
+DEVICE_ONLY = {m["name"] for m in json.loads((ROOT / "BENCHMARK.json").read_text())["per_layer"]
+               if m["source"] == "device_trace"}
 
 
 @pytest.mark.parametrize("cell", CELLS)
