@@ -180,7 +180,22 @@ result. Phases:
 27. sharded_cli: spmv and sssp --mesh 1 --sharded-mode band (as in JAX,
    --mesh 1 shards nothing), sssp --devices 0 --sharded-mode band (the
    sharded path, records tagged sssp:sharded1:band) and spmv --mesh 2,
-   which one card refuses with JAX's make_mesh error.
+   which one card refuses with JAX's make_mesh error;
+28. the dia kernel against its plain version on the same CUDA tensors, on
+   HPCG's matrix at its shipped 104³ grid (stencil27_coo: 1,124,864 rows,
+   29,791,000 nnz, 27 diagonals), each operand built through
+   variant="auto", which must resolve dia: all seven semirings in f32 and
+   the float ones in bf16, bit for bit except plus_times, held within the
+   tolerance above;
+29. the stencil's main path, with the launch counters reset just before
+   and read just after, in which only dia may launch: make_spmv_problem
+   with variant="auto" and benchmark_spmv, gold-gated in f32 and bf16,
+   then ten spmv calls, which must launch dia ten times;
+30. dia kernel times at the 104³ stencil in f32 and bf16 (the median of
+   five 50-call windows, the host's enqueue a call, a whole spmv call
+   the same way, the plain version), torch.mv on a CSR tensor of the same matrix, the bound of
+   the value slots and that of the matrix's entries; then the same in f32
+   at a 160³ stencil, whose diagonals are 8.8 times the L2.
 
 Then the kernels line, the nvidia-smi line and, last, the ok line.
 """
@@ -2228,6 +2243,189 @@ def spmm_kernel_times(torch, coo, bcoo) -> dict:
     return res
 
 
+# -------------------------------------------------------------------- dia
+
+STENCIL_GRID = 104  # HPCG's shipped local grid (hpcg.dat): 1,124,864 rows, 29,791,000 nnz
+STENCIL_WIDE = 160  # a grid whose 442 MB of diagonals are 8.8 times the H100's 50 MB L2
+
+
+def dia_vs_plain(torch, coo, errs) -> int:
+    """The dia kernel against its plain version on the same CUDA tensors,
+    each operand built through ``auto``, which must resolve dia: all seven
+    semirings, f32 values and, for the float semirings, bf16; the dp, and
+    the dp with the kernel's fold against ``fold_dp`` over the plain dp;
+    bit for bit, plus_times within PT_DELTA · max(1, |plain|, Σ|a·x|). The
+    worst plus_times error goes into ``errs``; returns the comparisons."""
+    from sparseharness_tpu_torch.ops import Geometry, build_operand_auto, dia
+    from sparseharness_tpu_torch.ops.torch_ops import fold_dp
+    from sparseharness_tpu_torch.semiring import PLUS_TIMES, get_semiring
+
+    rng = np.random.default_rng(17)
+    n = coo.shape[0]
+    checked = 0
+    for name in SEMIRINGS:
+        sr = get_semiring(name)
+        x = random_x(torch, sr, n, rng)
+        for vd in (("float32", "bfloat16") if sr.dtype == torch.float32 else ("float32",)):
+            route, op = build_operand_auto(coo, sr, Geometry(value_dtype=vd), device="cuda")
+            if route != "dia":
+                raise AssertionError(f"auto resolved {route}, not dia, for {name}/{vd}")
+            bound = None
+            if name == "plus_times":
+                bound = dia.dp_dia_plain(dia.DiaOperand(op.vals.abs(), op.offsets), x.abs(),
+                                         PLUS_TIMES, n_rows=n)
+            plain = dia.dp_dia_plain(op, x, sr, n_rows=n)
+            for fold, want in ((False, plain), (True, fold_dp(plain, None, sr, None, None))):
+                err = check_kernel(torch, f"dia {name}/{vd} fold={fold}",
+                                   dia.dia_dp_cuda(op, x, sr, n_rows=n, fold=fold), want, bound)
+                if bound is not None:
+                    errs["dia"] = max(errs["dia"], err)
+                checked += 1
+            del op, bound, plain
+    return checked
+
+
+def dia_main_path(torch, coo, out) -> dict:
+    """HPCG's stencil through make_spmv_problem with variant="auto", which
+    must resolve dia, and benchmark_spmv, gold-gated in f32 and bf16; then
+    ten ``spmv`` calls, which must launch dia once each and nothing else.
+    Returns those ten calls' launches."""
+    from sparseharness_tpu_torch.algorithms import make_spmv_problem
+    from sparseharness_tpu_torch.gold import Correctness, spmv_abs_bound, spmv_gold
+    from sparseharness_tpu_torch.harness import (
+        BenchmarkConfig, benchmark_spmv, device_hbm_bandwidth, variant_bytes,
+    )
+    from sparseharness_tpu_torch.ops import LAUNCHES, Geometry, spmv
+    from sparseharness_tpu_torch.semiring import PLUS_TIMES
+
+    bw = device_hbm_bandwidth(torch.cuda.get_device_name(0))
+    config = BenchmarkConfig(trials=5, launches_per_trial=20)
+    for vd in ("float32", "bfloat16"):
+        geom = Geometry(value_dtype=vd)
+        t0 = time.perf_counter()
+        prob = make_spmv_problem(coo, PLUS_TIMES, "auto", geom, seed=4)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        if prob.variant != "dia":
+            raise AssertionError(f"auto resolved {prob.variant}, not dia, for the stencil")
+        gold_coo = coo
+        if vd == "bfloat16":
+            vals = torch.from_numpy(coo.vals).to(torch.bfloat16).float().numpy()
+            gold_coo = coo.with_values(vals)
+        x_np = prob.x0.cpu().numpy()
+        gold = spmv_gold(gold_coo, x_np, prob.y.cpu().numpy(), PLUS_TIMES)
+        res = benchmark_spmv(prob, gold=gold, config=config, geometry=geom,
+                             matrix_name=f"stencil27_{STENCIL_GRID}", nnz=coo.nnz,
+                             gold_scale=spmv_abs_bound(gold_coo, x_np))
+        if res.correctness is not Correctness.CORRECT:
+            raise AssertionError(f"dia@{geom}: {res.correctness}")
+        n_bytes = variant_bytes("dia", prob.operand, prob.x0.numel() * 4, coo.shape[0] * 4)
+        out.append({
+            "variant": prob.variant, "geometry": str(geom), "correctness": res.correctness.value,
+            "build_seconds": build_s, "median_ms": res.median_ns * 1e-6,
+            "best_ms": res.best_ns * 1e-6, "gnnz_per_s": res.gnnz_per_s,
+            "bytes_per_s": n_bytes / (res.median_ns * 1e-9), "bound_ms": n_bytes / bw * 1e3,
+            "roofline_frac": res.roofline_frac,
+        })
+        if vd == "float32":
+            before = dict(LAUNCHES)
+            for _ in range(10):
+                spmv(prob.operand, prob.x0, sr=PLUS_TIMES, variant="dia", n_rows=coo.shape[0])
+            torch.cuda.synchronize()
+            ten = {k: v - before[k] for k, v in LAUNCHES.items() if v != before[k]}
+            if ten != {"dia": 10}:
+                raise AssertionError(f"ten spmv calls launched {ten}, not dia 10 times")
+        del prob
+    return ten
+
+
+def dia_kernel_times(torch, coo, value_dtypes=("float32", "bfloat16")) -> dict:
+    """The dia kernel at a stencil's shape, for each value type: the median
+    of five 50-call windows of CUDA events (the host enqueues a launch
+    faster than the kernel runs, so they time the kernel) and the host's
+    enqueue a call, a whole ``spmv`` call (the kernel, which folds) the same way,
+    and the plain version; torch.mv on a CSR tensor of
+    the same matrix as the library yardstick. The bound counts the (D, n)
+    value slots, x and the output once each, the operations one ⊗ and one
+    ⊕ a slot; ``matrix_bound_ms`` counts the matrix's entries in place of
+    the slots (off-matrix slots and the 0̄ of missing neighbours are not
+    work), as the benchmark's ``kernel_roofline.spmv`` does."""
+    from sparseharness_tpu_torch.harness import device_hbm_bandwidth
+    from sparseharness_tpu_torch.ops import Geometry, build_operand_auto, dia, spmv
+    from sparseharness_tpu_torch.semiring import PLUS_TIMES
+
+    bw = device_hbm_bandwidth(torch.cuda.get_device_name(0))
+    n = coo.shape[0]
+    x = random_x(torch, PLUS_TIMES, n, np.random.default_rng(19))
+    res = {"rows": n, "nnz": coo.nnz, "matrix_bound_ms": (coo.nnz + 2 * n) * 4 / bw * 1e3}
+    for vd in value_dtypes:
+        t0 = time.perf_counter()
+        route, op = build_operand_auto(coo, PLUS_TIMES, Geometry(value_dtype=vd), device="cuda")
+        torch.cuda.synchronize()
+        if route != "dia":
+            raise AssertionError(f"auto resolved {route}, not dia, for {vd}")
+        kernel = lambda: dia.dia_dp_cuda(op, x, PLUS_TIMES, n_rows=n)  # noqa: E731
+        entry = bound(tensor_bytes(op.vals, x) + n * 4, 2 * op.vals.numel(), bw)
+        entry.update(build_seconds=time.perf_counter() - t0, diagonals=len(op.offsets),
+                     **time_windows(torch, kernel, n=50))
+        entry["call"] = time_windows(torch, lambda: spmv(op, x, sr=PLUS_TIMES, variant="dia",
+                                                         n_rows=n), n=50)
+        entry["plain_ms"] = time_ms(torch, lambda: dia.dp_dia_plain(op, x, PLUS_TIMES,
+                                                                    n_rows=n), 5)
+        res[vd] = entry
+        del op
+    csr = csr_of(torch, coo)
+    res["library_ms"] = time_ms(torch, lambda: torch.mv(csr, x), 20)
+    del csr
+    return res
+
+
+def dia_phases(torch, card: str, smi: str) -> dict:
+    """Phases 28–30 (the stencil's); returns the dia kernel's entry of the
+    kernels line."""
+    from sparseharness_tpu_torch.formats import stencil27_coo
+    from sparseharness_tpu_torch.ops import LAUNCHES
+
+    stencil = stencil27_coo(STENCIL_GRID, STENCIL_GRID, STENCIL_GRID, seed=11)
+    derrs = {"dia": 0.0}
+    with Phase("dia_kernel_vs_plain") as f:
+        f.update(rows=stencil.shape[0], nnz=stencil.nnz,
+                 comparisons=dia_vs_plain(torch, stencil, derrs), max_abs_err=derrs)
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    dia_lines = []
+    with Phase("main_path_dia_spmv") as f:
+        ten = dia_main_path(torch, stencil, dia_lines)
+        f.update(card=card, nvidia_smi=smi, runs=dia_lines, ten_calls=ten)
+    dlaunches = {k: v for k, v in LAUNCHES.items() if v}
+    emit({"phase": "main_path_dia_launches", "launches": dlaunches})
+    if list(dlaunches) != ["dia"]:
+        raise AssertionError(f"the stencil's main path launched {dlaunches}, not dia alone")
+    with Phase("dia_kernel_times") as f:
+        dtimes = dia_kernel_times(torch, stencil)
+        del stencil
+        wide = stencil27_coo(STENCIL_WIDE, STENCIL_WIDE, STENCIL_WIDE, seed=12)
+        dtimes[f"grid {STENCIL_WIDE}"] = dia_kernel_times(torch, wide, ("float32",))
+        del wide
+        f.update(card=card, nvidia_smi=smi, times=dtimes)
+
+    # the dia kernel at HPCG's grid, and beside it a grid whose diagonals
+    # are 8.8 times the L2, so that they stream from HBM
+    t, w = dtimes["float32"], dtimes[f"grid {STENCIL_WIDE}"]
+    return {
+        "name": "dia", "route": "cuda", "source": "sparseharness_tpu_torch/ops/csrc/dia.cu",
+        "replaces": "none: sparseharness_tpu/ops/dia.py:72 is plain XLA",
+        "launches": dlaunches["dia"], "max_abs_err": derrs["dia"], "ms": t["ms"],
+        "enqueue_ms": t["enqueue_ms"], "bf16_ms": dtimes["bfloat16"]["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "matrix_bound_ms": dtimes["matrix_bound_ms"], "library_ms": dtimes["library_ms"],
+        "points": {f"grid {STENCIL_WIDE}": {
+            "ms": w["float32"]["ms"], "bound_ms": w["float32"]["bound_ms"],
+            "matrix_bound_ms": w["matrix_bound_ms"], "plain_ms": w["float32"]["plain_ms"],
+            "library_ms": w["library_ms"]}},
+    }
+
+
 # ---------------------------------------------------------------- sharded
 
 SHARDED_ROOTS = 8        # the tiles mode's sources: spmm_tiles at m = 8
@@ -2858,6 +3056,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as cli_dir, Phase("sharded_cli") as f:
         f.update(card=card, nvidia_smi=smi, **sharded_cli(torch, cli_dir))
 
+    dia_kernel = dia_phases(torch, card, smi)
+
     f32 = times["float32"]
     replaces = {"staged": "sparseharness_tpu/ops/pallas_bsr_band.py:180",
                 "streamed": "sparseharness_tpu/ops/pallas_bsr_band.py:259"}
@@ -2943,6 +3143,7 @@ def main() -> int:
             "library_ms": ltimes["library_ms"],
             **({"tail_ms": t["tail_ms"]} if "tail_ms" in t else {}),
         })
+    kernels.append(dia_kernel)
     emit({"kernels": kernels})
     print(nvidia_smi())
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,

@@ -82,7 +82,7 @@ band_bulk_kernel(const S* __restrict__ strips, const typename Op<SR>::T* __restr
                  const unsigned* __restrict__ spans, typename Op<SR>::T* __restrict__ out,
                  int rows_per_group, int kbn, int bn, int k, int c0, int c_blocks,
                  typename Op<SR>::T pad, int slot_bytes) {
-  using B = Band<SR>;
+  using B = Ieee<SR>;
   using T = typename B::T;
   constexpr int N = Chunk<S>::N;
   const int nc = kbn / N;

@@ -16,6 +16,7 @@ from sparseharness_tpu_torch.formats.generate import (  # noqa: F401
     power_law_coo,
     random_coo,
     random_graph_coo,
+    stencil27_coo,
 )
 from sparseharness_tpu_torch.formats import native_io  # noqa: F401
 from sparseharness_tpu_torch.formats.mtx import (  # noqa: F401

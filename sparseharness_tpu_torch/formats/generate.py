@@ -71,6 +71,24 @@ def banded_coo(n: int, bandwidth: int, dtype=np.float32, seed: int = 0) -> COO:
     return _dedup(rows, cols, vals, (n, n))
 
 
+def stencil27_coo(nx: int, ny: int, nz: int, dtype=np.float32, seed: int = 0) -> COO:
+    """HPCG's matrix (``src/GenerateProblem_ref.cpp`` of its reference
+    code): the 27-point stencil on an nx × ny × nz grid with no halo. Row
+    ``iz·nx·ny + iy·nx + ix`` holds a column for each neighbour inside the
+    grid, ascending, with no duplicate; values U[0.1, 1)."""
+    n = nx * ny * nz
+    row = np.arange(n, dtype=np.int64)[:, None]
+    s = np.array([-1, 0, 1])
+    sz, sy, sx = (a.ravel() for a in np.meshgrid(s, s, s, indexing="ij"))
+    inside = np.ones((n, 27), dtype=bool)
+    for i, d, size in ((row % nx, sx, nx), (row // nx % ny, sy, ny), (row // (nx * ny), sz, nz)):
+        inside &= (i + d >= 0) & (i + d < size)
+    cols = (row + (sz * nx * ny + sy * nx + sx))[inside]
+    rows = np.broadcast_to(row, inside.shape)[inside]
+    vals = np.random.default_rng(seed).uniform(0.1, 1.0, rows.size).astype(dtype)
+    return coo_from_arrays(rows, cols, vals, (n, n))
+
+
 def power_law_coo(n: int, nnz: int, alpha: float = 1.5, dtype=np.float32,
                   seed: int = 0) -> COO:
     """Power-law pattern: zipf-distributed column popularity over uniform

@@ -44,13 +44,14 @@ _LOADED: Dict[str, ctypes.CDLL] = {}
 LAUNCHES: Dict[str, int] = {"staged": 0, "streamed": 0, "bsr_fused": 0,
                             "bsr_ell": 0, "bsr_pallas": 0, "sell2": 0,
                             "spmm_band": 0, "spmm_tiles": 0, "sell_fused": 0,
-                            "sell_level": 0}
+                            "sell_level": 0, "dia": 0}
 
 #: semiring codes of the C interface, as csrc/semiring.cuh:SrCode
 SR_CODES = {"plus_times": 0, "min_plus": 1, "or_and": 2, "max_min": 3,
             "max_times": 4, "max_right": 5, "min_right": 6}
-#: strip (tile) type codes, as csrc/semiring.cuh:StripCode
-STRIP_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
+#: strip (tile) type codes, as csrc/semiring.cuh:StripCode; bool is dia's
+#: or_and values alone
+STRIP_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2, torch.bool: 3}
 
 
 def _nvcc() -> str:

@@ -33,7 +33,8 @@ from sparseharness_tpu_torch.utils.device import DeviceLike
 SLAB_COLS_BUDGET = 4096
 #: A TPU rule: x must fit the TPU kernel's VMEM. The H100 kernel reads x
 #: through L2 and needs no such cap; it is kept so that variant="auto"
-#: resolves the same variant as the JAX package on the same matrix.
+#: resolves the same variant as the JAX package on the same matrix, where
+#: dia's guard refuses the matrix.
 MAX_X_VMEM_BYTES = 6 * 1024 * 1024
 
 

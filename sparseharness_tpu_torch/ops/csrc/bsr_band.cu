@@ -61,39 +61,6 @@ using namespace sh;
 
 constexpr int kUnroll = 5;  // chunks a lane loads per pass, all before use
 
-// IEEE 754-2019 maximum and minimum: NaN propagates (max.NaN and min.NaN),
-// and of two zeros the maximum is +0 unless both are −0, the minimum −0
-// unless both are +0
-__device__ __forceinline__ float max_ieee(float a, float b) {
-  float m;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(m) : "f"(a), "f"(b));
-  return a == b ? __int_as_float(__float_as_int(a) & __float_as_int(b)) : m;
-}
-
-__device__ __forceinline__ float min_ieee(float a, float b) {
-  float m;
-  asm("min.NaN.f32 %0, %1, %2;" : "=f"(m) : "f"(a), "f"(b));
-  return a == b ? __int_as_float(__float_as_int(a) | __float_as_int(b)) : m;
-}
-
-// the band kernel's semiring: Op<SR> with the IEEE minimum and maximum for
-// the float ⊕ (and max_min's ⊗)
-template <int SR>
-struct Band {
-  using O = Op<SR>;
-  using T = typename O::T;
-  __device__ static T identity() { return O::identity(); }
-  __device__ static T add(T a, T b) {
-    if constexpr (SR == MIN_PLUS) return min_ieee(a, b);
-    else if constexpr (SR == MAX_MIN || SR == MAX_TIMES) return max_ieee(a, b);
-    else return O::add(a, b);
-  }
-  __device__ static T mul(T x, T a) {
-    if constexpr (SR == MAX_MIN) return min_ieee(x, a);
-    else return O::mul(x, a);
-  }
-};
-
 // the lanes of one 16-byte chunk of strip, in the compute type
 template <typename S>
 struct Chunk {
@@ -136,17 +103,17 @@ __device__ __forceinline__ void load_xn(const T* p, T (&v)[N]) {
 // ⊕ across each aligned group of L lanes; every lane of a group gets its
 // group's result
 template <int SR, int L>
-__device__ __forceinline__ typename Band<SR>::T group_reduce(typename Band<SR>::T v) {
+__device__ __forceinline__ typename Ieee<SR>::T group_reduce(typename Ieee<SR>::T v) {
 #pragma unroll
-  for (int m = L / 2; m > 0; m >>= 1) v = Band<SR>::add(v, __shfl_xor_sync(0xffffffffu, v, m));
+  for (int m = L / 2; m > 0; m >>= 1) v = Ieee<SR>::add(v, __shfl_xor_sync(0xffffffffu, v, m));
   return v;
 }
 
 // ⊕ of ⊗(x_l, pad) over the N lanes of window chunk c
 template <int SR, bool SHARED, int N>
-__device__ __forceinline__ typename Band<SR>::T pad_chunk(const typename Band<SR>::T* xsrc,
-                                                          int c, typename Band<SR>::T pad) {
-  using B = Band<SR>;
+__device__ __forceinline__ typename Ieee<SR>::T pad_chunk(const typename Ieee<SR>::T* xsrc,
+                                                          int c, typename Ieee<SR>::T pad) {
+  using B = Ieee<SR>;
   typename B::T xv[N];
   load_xn<SHARED>(xsrc + c * N, xv);
   typename B::T v = B::identity();
@@ -160,9 +127,9 @@ __device__ __forceinline__ typename Band<SR>::T pad_chunk(const typename Band<SR
 // identity). Thread t takes a run of consecutive chunks; warp shuffles and
 // one exchange of warp totals give each run what lies before and after it.
 template <int SR, bool SHARED, int N>
-__device__ void pad_scans(const typename Band<SR>::T* xsrc, int nc, typename Band<SR>::T pad,
-                          typename Band<SR>::T* pre, typename Band<SR>::T* suf) {
-  using B = Band<SR>;
+__device__ void pad_scans(const typename Ieee<SR>::T* xsrc, int nc, typename Ieee<SR>::T pad,
+                          typename Ieee<SR>::T* pre, typename Ieee<SR>::T* suf) {
+  using B = Ieee<SR>;
   using T = typename B::T;
   __shared__ T totals[2][kWarps];
   const int lane = threadIdx.x & 31;
@@ -214,7 +181,7 @@ band_span_kernel(const S* __restrict__ strips, const typename Op<SR>::T* __restr
                  const unsigned* __restrict__ spans, typename Op<SR>::T* __restrict__ out,
                  int rows_per_group, int kbn, int bn, int k, int part_lanes, int c0,
                  int c_blocks, typename Op<SR>::T pad) {
-  using B = Band<SR>;
+  using B = Ieee<SR>;
   using T = typename B::T;
   constexpr int N = Chunk<S>::N;
   constexpr int kStepRows = 32 / L;

@@ -35,8 +35,9 @@ enum SrCode {
   MIN_RIGHT = 6,
 };
 
-// strip dtype codes, as ops/_build.py:STRIP_CODES
-enum StripCode { STRIP_F32 = 0, STRIP_BF16 = 1, STRIP_I32 = 2 };
+// strip dtype codes, as ops/_build.py:STRIP_CODES; bool (one byte, 0 or 1)
+// is dia.cu's or_and values, which no other kernel takes
+enum StripCode { STRIP_F32 = 0, STRIP_BF16 = 1, STRIP_I32 = 2, STRIP_BOOL = 3 };
 
 // identity: the true identity of ⊕, which every partial starts from;
 // zero: the semiring zero (0̄), which the gen-1 tile kernel seeds a row with
@@ -104,6 +105,40 @@ struct Op<MIN_RIGHT> {
   __device__ static T zero() { return INT_MAX; }
   __device__ static T add(T a, T b) { return min(a, b); }
   __device__ static T mul(T x, T a) { return a == INT_MAX ? a : x; }
+};
+
+// IEEE 754-2019 maximum and minimum: NaN propagates (max.NaN and min.NaN),
+// and of two zeros the maximum is +0 unless both are −0, the minimum −0
+// unless both are +0
+__device__ __forceinline__ float max_ieee(float a, float b) {
+  float m;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(m) : "f"(a), "f"(b));
+  return a == b ? __int_as_float(__float_as_int(a) & __float_as_int(b)) : m;
+}
+
+__device__ __forceinline__ float min_ieee(float a, float b) {
+  float m;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(m) : "f"(a), "f"(b));
+  return a == b ? __int_as_float(__float_as_int(a) | __float_as_int(b)) : m;
+}
+
+// Op<SR> with the IEEE minimum and maximum for the float ⊕ (and max_min's
+// ⊗): the band and diagonal kernels' semiring, whose float min and max do
+// not depend on the order of their operands
+template <int SR>
+struct Ieee {
+  using O = Op<SR>;
+  using T = typename O::T;
+  __device__ static T identity() { return O::identity(); }
+  __device__ static T add(T a, T b) {
+    if constexpr (SR == MIN_PLUS) return min_ieee(a, b);
+    else if constexpr (SR == MAX_MIN || SR == MAX_TIMES) return max_ieee(a, b);
+    else return O::add(a, b);
+  }
+  __device__ static T mul(T x, T a) {
+    if constexpr (SR == MAX_MIN) return min_ieee(x, a);
+    else return O::mul(x, a);
+  }
 };
 
 // four consecutive strip entries, converted to the compute type, with a

@@ -7,16 +7,19 @@ PyTorch runs eagerly, so there is no jitted form of :func:`spmv`.
 Spans, where they are recorded (``utils/timing.py``): ``build.auto``
 around :func:`build_operand_auto` (attribute ``variant``, the one built),
 ``build.try`` around each variant's build (``variant``, and ``outcome``
-``built`` or ``refused``), ``spmv`` around a call (``variant``) with
+``built`` or ``refused``; under ``auto``, a guard's findings, such as dia's
+``diagonals`` and ``fill``), ``spmv`` around a call (``variant``) with
 ``spmv.dp`` (the variant's dp, through its kernel launch) and
-``spmv.fold`` (:func:`torch_ops.fold_dp`) inside it.
+``spmv.fold`` (:func:`torch_ops.fold_dp`) inside it; a variant that folds
+in its dp's launch (``KernelVariant.folded``: dia) has no ``spmv.fold``
+where the call has no y or α.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -58,6 +61,13 @@ class KernelVariant:
     # (operand, x, sr, *, n_rows) → ⊕-reduced dp over the padded rows
     dp: Callable[..., torch.Tensor]
     description: str = ""
+    # auto's guard, before the build: coo → (why auto refuses the matrix, or
+    # None; attributes for the build.try span). Explicit builds skip it.
+    admits: Optional[Callable[[COO], Tuple[Optional[str], dict]]] = None
+    # (operand, x, sr, *, n_rows) → spmv's answer where there is no y or α:
+    # the dp with fold_dp's ⊕-clamp done in the dp's own launch. None: spmv
+    # folds the dp itself.
+    folded: Optional[Callable[..., torch.Tensor]] = None
 
 
 VARIANTS: Dict[str, KernelVariant] = {}
@@ -75,13 +85,17 @@ def get_variant(name: str) -> KernelVariant:
         raise KeyError(f"unknown kernel variant {name!r}; known: {sorted(VARIANTS)}") from None
 
 
-#: structure-aware fallback chain for variant="auto", the JAX package's:
-#: the streaming band kernel when the window is affine, the fused gather
+#: structure-aware fallback chain for variant="auto": the streaming band
+#: kernel when the window is affine, the diagonal kernel for stencils whose
+#: far diagonals overflow that window (behind dia's guard), the fused gather
 #: kernel when the structure blocks well and x fits the TPU's VMEM cap, the
 #: sell2 panel kernel for ragged and power-law rows (no cap on x), the
 #: pre-gathered strips when sell2's padding guard refuses, ELL as the
-#: universal fallback
-AUTO_CHAIN = ("bsr_band", "bsr_fused", "sell2", "bsr_ell", "ell")
+#: universal fallback. The JAX package's chain is this one without dia: its
+#: dia has no kernel, and bsr_fused reads a stencil's mostly empty tiles
+#: (2% full at HPCG's 104³ grid: 1.67 ms a call on an H100, 44 times the
+#: bytes bound that the dia kernel comes within 87% of)
+AUTO_CHAIN = ("bsr_band", "dia", "bsr_fused", "sell2", "bsr_ell", "ell")
 
 
 def _check_init(coo: COO, sr: Semiring, op, variant: str) -> None:
@@ -109,12 +123,21 @@ def build_operand_auto(coo: COO, sr: Semiring, geometry: Geometry = Geometry(),
     last = None
     with span("build.auto") as auto:
         for name in AUTO_CHAIN:
+            v = get_variant(name)
             with span("build.try", variant=name) as s:
                 try:
-                    op = get_variant(name).build(coo, sr, geometry, device)
+                    if v.admits is not None:
+                        why, attrs = v.admits(coo)
+                        s.set(**attrs)
+                        if why is not None:
+                            raise NotImplementedError(f"{name}: {why}")
+                    op = v.build(coo, sr, geometry, device)
                 except NotImplementedError as e:
                     s.set(outcome="refused")
-                    last = e
+                    # the message alone: kept, the exception's traceback would
+                    # hold the refused build's frames and their device arrays
+                    # until a garbage collection
+                    last = str(e)
                     continue
                 _check_init(coo, sr, op, name)
                 s.set(outcome="built")
@@ -138,17 +161,25 @@ def spmv(
     operand's device."""
     if timing.RECORDING:
         return _spmv_spans(operand, x, y, sr, variant, n_rows, alpha, beta)
-    dp = get_variant(variant).dp(operand, x, sr, n_rows=n_rows)[:n_rows]
+    v = get_variant(variant)
+    if y is None and alpha is None and v.folded is not None:
+        return v.folded(operand, x, sr, n_rows=n_rows)
+    dp = v.dp(operand, x, sr, n_rows=n_rows)[:n_rows]
     if y is not None:
         y = y[:n_rows]
     return torch_ops.fold_dp(dp, y, sr, alpha, beta)
 
 
 def _spmv_spans(operand, x, y, sr, variant, n_rows, alpha, beta) -> torch.Tensor:
-    """:func:`spmv`, each part in its span."""
+    """:func:`spmv`, each part in its span; a variant that folds in its dp's
+    launch has no ``spmv.fold``."""
+    v = get_variant(variant)
     with span("spmv", variant=variant):
+        if y is None and alpha is None and v.folded is not None:
+            with span("spmv.dp"):
+                return v.folded(operand, x, sr, n_rows=n_rows)
         with span("spmv.dp"):
-            dp = get_variant(variant).dp(operand, x, sr, n_rows=n_rows)[:n_rows]
+            dp = v.dp(operand, x, sr, n_rows=n_rows)[:n_rows]
         if y is not None:
             y = y[:n_rows]
         with span("spmv.fold"):
@@ -199,10 +230,15 @@ register_variant(KernelVariant(
 
 register_variant(KernelVariant(
     name="dia",
-    build=lambda coo, sr, g, device: dia.build_dia(coo, sr, device=device),
+    build=lambda coo, sr, g, device: dia.build_dia(
+        coo, sr, value_dtype=g.value_dtype, device=device),
     dp=dia.dp_dia,
-    description="Diagonal layout in plain torch: shifted slices of x, no "
-                "gather; auto routes banded structure to bsr_band instead",
+    description="Diagonal layout: a CUDA thread a row over the D diagonals, "
+                "x bounds-checked in the kernel, no gather; auto takes it "
+                "after bsr_band for square matrices of few, well-filled "
+                "diagonals (stencils)",
+    admits=dia.auto_guard,
+    folded=lambda op, x, sr, *, n_rows: dia.dp_dia(op, x, sr, n_rows=n_rows, fold=True),
 ))
 
 register_variant(KernelVariant(

@@ -124,16 +124,28 @@ def test_fold_dp_clamps_min_plus_overflow():
 
 
 def test_auto_chain_picks_band_then_fused():
-    """The port's chain is the JAX package's, sell2 included."""
+    """The port's chain is the JAX package's, sell2 included, with dia
+    after bsr_band: a band and a random matrix resolve as in JAX, and a
+    27-point stencil past bsr_band's window takes dia, where JAX takes
+    bsr_fused."""
+    from sparseharness_tpu.ops import build_operand_auto as jax_auto
     from sparseharness_tpu.ops.registry import AUTO_CHAIN as JAX_AUTO_CHAIN
+    from sparseharness_tpu.semiring import get_semiring as jax_semiring
+    from test_torch_dia import stencil27
 
     sr = get_semiring("plus_times")
-    assert AUTO_CHAIN == JAX_AUTO_CHAIN == ("bsr_band", "bsr_fused", "sell2", "bsr_ell", "ell")
+    assert JAX_AUTO_CHAIN == ("bsr_band", "bsr_fused", "sell2", "bsr_ell", "ell")
+    assert AUTO_CHAIN == JAX_AUTO_CHAIN[:1] + ("dia",) + JAX_AUTO_CHAIN[1:]
     name, _ = build_operand_auto(tf.banded_coo(600, 10, seed=1), sr, device="cpu")
     assert name == "bsr_band"
     name, _ = build_operand_auto(tf.random_coo(2048, 2048, 3000, seed=1), sr,
                                  device="cpu")
     assert name == "bsr_fused"
+    stencil = stencil27(24, 24, 24)
+    name, _ = build_operand_auto(stencil, sr, device="cpu")
+    assert name == "dia"
+    jcoo = jf.coo_from_arrays(stencil.rows, stencil.cols, stencil.vals, stencil.shape)
+    assert jax_auto(jcoo, jax_semiring("plus_times"))[0] == "bsr_fused"
     assert get_variant("sell2").name == "sell2"  # registered
 
 
