@@ -71,12 +71,12 @@ result. Phases:
    launch per step), each certified;
 12. kernel timing at the ragged shape: the sell2 kernel in f32 and bf16
    (the median of five windows, the host's enqueue time per call, and the
-   device time per launch of its panel and row stages from torch.profiler,
-   with the launches it recorded), its plain
+   device time per launch of its one kernel from torch.profiler, with the
+   launches it recorded), its plain
    version, torch.mv on a CSR tensor of the same matrix, the bound, the
-   bytes of the plan and of a call, the panel stage's work items (chunks
-   and runs per block, max and median), and the seconds of each build
-   (native, with its seconds by stage);
+   bytes of the plan and of a call, the plan's bins (rows and entries
+   each) and pieces, and the seconds of each build (native, with its
+   seconds by stage);
 13. the SpMM kernels against their plain versions: spmm_tiles for all
    seven semirings and strip types over bsr_ell and bsr_fused strips of
    random_coo(300, 257, 2500, seed=3) and random_coo(64, 4096, 6000,
@@ -1091,46 +1091,32 @@ def ragged_fixpoints(torch, coo, out) -> None:
 
 
 def sell2_work(torch, plan) -> dict:
-    """The panel stage's work items: blocks, (panel, lane group)s, and the
-    128-slot chunks and runs each block carries (max and median)."""
-    blocks = plan.blocks.long().cpu()
-    chunks = blocks[:, 3] - blocks[:, 2]
-    run0 = plan.chunk_run0.long().cpu()
-    runs = run0[blocks[:, 3]] - run0[blocks[:, 2]]
-    return {"blocks": int(blocks.shape[0]),
-            "groups": len({(g, q) for g, q in blocks[:, :2].tolist()}),
-            "chunks_per_block_max": int(chunks.max()),
-            "chunks_per_block_median": float(chunks.float().median()),
-            "runs_per_block_max": int(runs.max()),
-            "runs_per_block_median": float(runs.float().median()),
-            "owners": int(plan.owners.shape[0]),
+    """The plan's bins (rows and entries each, widest first), its pieces
+    and owners, and the most pieces an owner folds."""
+    return {"bin_rows": list(plan.bin_rows), "bin_entries": list(plan.bin_entries),
+            "pieces": plan.n_pieces, "owners": int(plan.owners.shape[0]),
             "pieces_per_owner_max": int((plan.owners[:, 2] - plan.owners[:, 1]).max())
             if plan.owners.numel() else 0}
 
 
 def sell2_call_bytes(plan, x_bytes: int) -> int:
-    """The bytes one call moves by its design: each panel block's wordB and
-    vals columns and the plan tables once, the run values written and read
-    once, x once and the output once."""
-    if plan.store is None:
-        return x_bytes + plan.n_final * 4
-    block_bytes = 128 * 32 * (4 + plan.store.itemsize)
-    tables = tensor_bytes(plan.slot_word, plan.chunk_run0, plan.xbase, plan.blocks,
-                          plan.row_ptr, plan.row_runs, plan.owners, plan.owner_bits)
-    return (plan.blocks.shape[0] * block_bytes + tables + 2 * plan.n_runs * 4
-            + x_bytes + plan.n_final * 4)
+    """The bytes one call moves by its design: the plan's column and value
+    stream, row pointers and destinations once, the piece values written and
+    read once, x once and the output once."""
+    return (tensor_bytes(plan.cols, plan.vals, plan.row_ptr, plan.row_dest)
+            + 2 * plan.n_pieces * 4 + x_bytes + plan.n_final * 4)
 
 
 def ragged_kernel_times(torch, coo) -> dict:
     """The sell2 kernel's ms at the ragged shape (f32 and bf16), its plain
     version's ms, the bound, the seconds of each build and the library
-    yardstick's ms. The bound counts the panel stream, piece_owner and
-    virt_blocks, x and the output once each; the plan the kernel derives
-    from the stream is reported beside it (``plan_bytes``) but not
-    counted, and ``call_bytes`` is what a call moves by its design. Each
-    stage's device ms comes from torch.profiler, the host's enqueue per
-    call from ``time_windows``, and the work items per block from the
-    plan."""
+    yardstick's ms. The bound counts the matrix, as portbench/work.py
+    does: each folded value once (in the value type), x and the output
+    once; the panel stream and the plan are reported beside it
+    (``stream_bytes``, ``plan_bytes``), and ``call_bytes`` is what a call
+    moves by its design. The kernel's device ms comes from torch.profiler,
+    the host's enqueue per call from ``time_windows``, and the bins from
+    the plan."""
     from sparseharness_tpu_torch.harness import device_hbm_bandwidth
     from sparseharness_tpu_torch.ops import sell2
     from sparseharness_tpu_torch.semiring import PLUS_TIMES
@@ -1145,17 +1131,15 @@ def ragged_kernel_times(torch, coo) -> dict:
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         stream = [t for s in op.slabs if s is not None for t in s.values()]
-        extra = [t for t in (op.piece_owner, op.virt_blocks) if t is not None]
         plan = op.plan
         n_slots = sum(s["vals"].numel() for s in op.slabs if s is not None)
-        out_rows = op.base_pad if op.piece_owner is not None else plan.n_out
-        entry = bound(tensor_bytes(*stream, *extra) + x.numel() * 4 + out_rows * 4,
-                      2 * n_slots, bw)
+        entry = bound(plan.n_entries * plan.vals.element_size() + x.numel() * 4
+                      + coo.shape[0] * 4, 2 * plan.n_entries, bw)
         entry.update(
             build_seconds=build_s, build_native=rec.native, build_stages=rec.seconds,
-            numpy_body_slabs=rec.numpy_slabs, panels=plan.n_panels, layouts=len(op.layouts),
-            runs=plan.n_runs, slots=n_slots, pieces=0 if op.piece_owner is None
-            else int(op.piece_owner.numel()),
+            numpy_body_slabs=rec.numpy_slabs, panels=sum(lay.panels for lay in op.layouts),
+            layouts=len(op.layouts), entries=plan.n_entries, slots=n_slots,
+            pieces=plan.n_pieces,
             virtual_chunks=0 if op.virt_blocks is None else int(op.virt_blocks.shape[0]),
             stream_bytes=tensor_bytes(*stream),
             plan_bytes=tensor_bytes(*(getattr(plan, f.name) for f in dataclasses.fields(plan)
@@ -1498,16 +1482,16 @@ def _with_native(flag: str, fn):
 
 
 def same_sell2(torch, a, b) -> int:
-    """Fails unless two sell2 operands hold the same arrays, plan included
-    (but the panels' addresses); returns the tensors compared."""
+    """Fails unless two sell2 operands hold the same arrays, plan included;
+    returns the tensors compared."""
     if a.layouts != b.layouts or (a.n_chunks, a.base_pad) != (b.n_chunks, b.base_pad):
         raise AssertionError("sell2 native vs NumPy: layouts differ")
     pairs = [(f"slab {i} {k}", sa[k], sb[k]) for i, (sa, sb) in
              enumerate(zip(a.slabs, b.slabs, strict=True)) if sa is not None for k in sa]
     pairs += [(f, getattr(a, f), getattr(b, f)) for f in ("piece_owner", "virt_blocks")]
     pairs += [(f"plan.{f.name}", getattr(a.plan, f.name), getattr(b.plan, f.name))
-              for f in dataclasses.fields(a.plan) if f.name != "panel_ptrs"
-              and isinstance(getattr(a.plan, f.name), torch.Tensor)]
+              for f in dataclasses.fields(a.plan)
+              if isinstance(getattr(a.plan, f.name), torch.Tensor)]
     for label, x, y in pairs:
         if (x is None) != (y is None) or (x is not None and not (
                 x.dtype == y.dtype and torch.equal(_bits(torch, x), _bits(torch, y)))):
@@ -2380,6 +2364,42 @@ def dia_kernel_times(torch, coo, value_dtypes=("float32", "bfloat16")) -> dict:
     return res
 
 
+def ragged_phases(torch, card: str, smi: str, rcoo):
+    """Phases 10–12 (the sell2 kernel's, at the ragged shape ``rcoo``);
+    returns the main path's sell2 launches, the kernel's largest plus_times
+    error and its times."""
+    from sparseharness_tpu_torch.ops import LAUNCHES
+
+    rerrs = {"sell2": 0.0}
+    with Phase("sell2_kernel_vs_plain_small") as f:
+        f["comparisons"] = sum(sell2_vs_plain(torch, m, all_cases(torch), rerrs)
+                               for m in ragged_cases(torch))
+    with Phase("sell2_kernel_vs_plain_full") as f:
+        f["comparisons"] = sell2_vs_plain(
+            torch, rcoo, [("plus_times", "float32"), ("plus_times", "bfloat16"),
+                          ("min_plus", "float32"), ("or_and", "float32")], rerrs)
+        f.update(rows=rcoo.shape[0], nnz=rcoo.nnz, max_abs_err=rerrs)
+
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    rspmv_lines, rapp_lines = [], []
+    with Phase("main_path_ragged_spmv") as f:
+        ragged_main_path(torch, rcoo, rspmv_lines)
+        f.update(card=card, nvidia_smi=smi, runs=rspmv_lines)
+    with Phase("main_path_ragged_fixpoints") as f:
+        ragged_fixpoints(torch, rcoo, rapp_lines)
+        f.update(card=card, nvidia_smi=smi, runs=rapp_lines)
+    rlaunches = dict(LAUNCHES)
+    emit({"phase": "main_path_ragged_launches", "launches": rlaunches})
+    if rlaunches["sell2"] <= 0:
+        raise AssertionError("the sell2 kernel never launched on the ragged main path")
+
+    with Phase("ragged_kernel_times") as f:
+        rtimes = ragged_kernel_times(torch, rcoo)
+        f.update(card=card, nvidia_smi=smi, times=rtimes)
+    return rlaunches["sell2"], rerrs, rtimes
+
+
 def dia_phases(torch, card: str, smi: str) -> dict:
     """Phases 28–30 (the stencil's); returns the dia kernel's entry of the
     kernels line."""
@@ -2936,34 +2956,7 @@ def main() -> int:
         f.update(card=card, nvidia_smi=smi, times=btimes)
 
     rcoo = power_law_coo(RAGGED_N, RAGGED_NNZ, alpha=1.5, seed=RAGGED_SEED)
-    rerrs = {"sell2": 0.0}
-    with Phase("sell2_kernel_vs_plain_small") as f:
-        f["comparisons"] = sum(sell2_vs_plain(torch, m, all_cases(torch), rerrs)
-                               for m in ragged_cases(torch))
-    with Phase("sell2_kernel_vs_plain_full") as f:
-        f["comparisons"] = sell2_vs_plain(
-            torch, rcoo, [("plus_times", "float32"), ("plus_times", "bfloat16"),
-                          ("min_plus", "float32"), ("or_and", "float32")], rerrs)
-        f.update(rows=rcoo.shape[0], nnz=rcoo.nnz, max_abs_err=rerrs)
-
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
-    rspmv_lines, rapp_lines = [], []
-    with Phase("main_path_ragged_spmv") as f:
-        ragged_main_path(torch, rcoo, rspmv_lines)
-        f.update(card=card, nvidia_smi=smi, runs=rspmv_lines)
-    with Phase("main_path_ragged_fixpoints") as f:
-        ragged_fixpoints(torch, rcoo, rapp_lines)
-        f.update(card=card, nvidia_smi=smi, runs=rapp_lines)
-    rlaunches = dict(LAUNCHES)
-    emit({"phase": "main_path_ragged_launches", "launches": rlaunches})
-    if rlaunches["sell2"] <= 0:
-        raise AssertionError("the sell2 kernel never launched on the ragged main path")
-    launches["sell2"] = rlaunches["sell2"]
-
-    with Phase("ragged_kernel_times") as f:
-        rtimes = ragged_kernel_times(torch, rcoo)
-        f.update(card=card, nvidia_smi=smi, times=rtimes)
+    launches["sell2"], rerrs, rtimes = ragged_phases(torch, card, smi, rcoo)
 
     serrs = {"spmm_band": 0.0, "spmm_tiles": 0.0}
     with Phase("spmm_kernel_vs_plain_small") as f:

@@ -210,9 +210,9 @@ def main() -> int:
     emit({"sell2_coo_nnz": rcoo.nnz, "sell2_coo_sha256_16": digest.hexdigest()[:16],
           "sell2_coo_row_sum": int(rcoo.rows.astype(np.int64).sum()),
           "sell2_coo_col_sum": int(rcoo.cols.astype(np.int64).sum()),
-          "numpy": np.__version__, "cpu_plan_runs": cpu_op.plan.n_runs,
-          "card_plan_runs": card_op.plan.n_runs,
-          "card_build_runs": sell2.build_sell2(rcoo, sr, device="cuda").plan.n_runs})
+          "numpy": np.__version__, "cpu_plan_entries": cpu_op.plan.n_entries,
+          "card_plan_entries": card_op.plan.n_entries,
+          "card_build_entries": sell2.build_sell2(rcoo, sr, device="cuda").plan.n_entries})
     return 0
 
 

@@ -27,15 +27,13 @@ out row (row0 + o·128 + l) ⊕-accumulates the run its route names, layout
 by layout and panel by panel. Rows longer than ``SPLIT_T`` are striped
 over overflow pieces past ``base_pad`` and ⊕-folded back after the sweep.
 
-On a CUDA tensor :func:`dp_sell2` makes one call into ``csrc/sell2.cu``
-over all panels of all layouts at once: a panel stage, one block per
-(panel, 32-lane group) that reduces its runs in chunks of 128 slots, and
-a row stage that reduces each output row's runs and folds the pieces.
-Both are driven by a plan (:class:`Sell2Plan`) that :func:`make_plan`
-decodes once per operand, on the device, from wordA and wordB, with the
-launch's arguments made once beside it. On a CPU tensor it runs
-:func:`dp_sell2_plain`, a literal torch replica of the TPU kernel's panel
-body.
+On a CUDA tensor :func:`dp_sell2` makes one launch of ``csrc/sell2.cu``
+that reads each dp row's entries in row order: a plan (:class:`Sell2Plan`)
+that :func:`make_plan` decodes once per operand, on the device, from the
+panels' real slots (pads dropped) holds every dp row's (column, value)
+pairs contiguously, rows grouped by length, with the launch's arguments
+made once beside it. On a CPU tensor it runs :func:`dp_sell2_plain`, a
+literal torch replica of the TPU kernel's panel body.
 """
 
 from __future__ import annotations
@@ -83,13 +81,15 @@ SHELF_HOLE_TRIES = 32
 #: virtualized: their blocks regroup into synthetic chunks so that light
 #: segments from many chunks share panels
 VIRT_DEMAND_T = 100
-#: lanes of a panel that one panel-stage block owns
-GROUP_LANES = 32
-#: run slots a warp reduces at once (4 a lane); no run crosses a chunk
-CHUNK_SLOTS = 128
-#: most chunks one panel-stage block carries; a (panel, lane group) with
-#: more is cut into near-equal blocks, each computing the group's products
-BLOCK_CHUNK_CAP = 32
+#: the kernel's bins, widest first: the lanes that take one dp row in each
+#: (csrc/sell2.cu:kBinLanes), and the longest row each bin but the first
+#: takes; the first takes the longer rows and every overflow piece
+BIN_LANES = (32, 16, 8, 4, 2, 1)
+BIN_MAX_LEN = (64, 32, 16, 8, 4)
+#: threads of a block of the kernel (csrc/sell2.cu:kRowThreads)
+ROW_THREADS = 256
+#: panels decoded at once by make_plan, which bounds its temporaries
+PLAN_PANELS = 128
 
 
 class _SlabLayout(NamedTuple):
@@ -102,69 +102,59 @@ class _SlabLayout(NamedTuple):
 
 
 #: the plan's tensors that the kernel reads, in csrc/sell2.cu:Sell2Plan's order
-_LAUNCH_TENSORS = ("panel_ptrs", "xbase", "blocks", "slot_word", "chunk_run0", "row_ptr",
-                   "row_runs", "owners", "piece_slot", "owner_bits", "owner_done")
+_LAUNCH_TENSORS = ("row_ptr", "row_dest", "cols", "vals", "owners", "piece_slot",
+                   "owner_done")
+_N_BINS = len(BIN_LANES)
 
 
 class _Launch(ctypes.Structure):
     """The call's fixed arguments, as csrc/sell2.cu:Sell2Plan takes them."""
 
     _fields_ = ([(f, ctypes.c_void_p) for f in _LAUNCH_TENSORS]
-                + [(f, ctypes.c_int) for f in (
-                    "n_blocks", "n_runs", "n_pieces", "n_final", "base_pad", "val_dtype",
-                    "device")])
+                + [(f, ctypes.c_int * (_N_BINS + 1)) for f in ("bin_pos", "bin_block")]
+                + [(f, ctypes.c_int) for f in ("n_final", "n_pieces", "val_dtype", "device")])
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Sell2Plan:
-    """The kernel's plan, decoded on the device from the slabs.
+    """The kernel's plan: every dp row's entries in row order, decoded on
+    the device from the slabs' real slots.
 
-    Global panel g (layouts with panels concatenated in order) has its
-    wordB and vals at ``panel_ptrs[g]`` and binds, for sublane s and way w,
-    the x block that starts at column ``xbase[g, s, w]``. A work item
-    (panel-stage block) ``blocks[i] = (g, q, c0, c1)`` reduces chunks
-    [c0, c1) of 128 run slots, which hold the runs of lanes
-    [32q, 32q + 32) of panel g, widest first, each aligned to its width.
-    Slot word j is ``a·32 + l − 32q`` (align sublane, lane) and, at a run's
-    first slot, ``(level + 1) << 12``. Runs are numbered in slot order,
-    ``chunk_run0[c]`` of them before chunk c. Dp row r's runs are
-    ``row_runs[row_ptr[r]:row_ptr[r + 1]]`` in (layout, panel) order, bit 31
-    set on a run whose layout differs from the one before it. Owner row
-    ``owners[i, 0]`` folds overflow pieces [owners[i, 1], owners[i, 2]),
-    piece k belongs to ``owners[piece_slot[k]]``, and owners are marked in
-    ``owner_bits``. ``owner_done`` counts each owner's pieces during a
-    call and is 0 between calls, so calls on one operand run in stream
-    order. ``slabs`` is the operand's list that the pointers and
-    ``launch`` were made from: the plan is remade with its slabs."""
+    The kernel walks positions: position i is dp row ``row_dest[i]`` or,
+    where that is n_final or more, overflow piece ``row_dest[i] − n_final``,
+    and its entries are ``cols[row_ptr[i]:row_ptr[i + 1]]`` (x columns)
+    and the same stretch of ``vals`` (store type), in column order. The
+    positions come in the kernel's bins, widest first (``bin_rows[k]``
+    positions and ``bin_entries[k]`` entries in bin k; pieces first in bin
+    0), each bin's rows ascending; then owner i's own row at position
+    ``sum(bin_rows) + i``, in no bin. ``cols`` and ``vals`` are padded with
+    column 0 and 0̄ to a multiple of 4, which no row reads. Owner row
+    ``owners[i, 0]`` folds pieces [owners[i, 1], owners[i, 2]) after its
+    own row, piece k belongs to ``owners[piece_slot[k]]``, and
+    ``owner_done`` counts each owner's pieces during a call and is 0
+    between calls, so calls on one operand run in stream order. ``slabs``
+    is the operand's list the plan was made from: the plan is remade with
+    its slabs."""
 
     slabs: list
-    panel_ptrs: torch.Tensor   # int64 (G, 2)
-    xbase: torch.Tensor        # int32 (G, 128, 2)
-    blocks: torch.Tensor       # int32 (B, 4), a panel's together
-    slot_word: torch.Tensor    # int16 (C·128,), read as uint16
-    chunk_run0: torch.Tensor   # int32 (C + 1,)
-    row_ptr: torch.Tensor      # int32 (n_out + 1,)
-    row_runs: torch.Tensor     # int32 (R,)
+    row_ptr: torch.Tensor      # int32 (n_positions + O + 1,)
+    row_dest: torch.Tensor     # int32 (n_positions + O,)
+    cols: torch.Tensor         # int32 (n_slots,)
+    vals: torch.Tensor         # store type (n_slots,)
     owners: torch.Tensor       # int32 (O, 3)
     piece_slot: torch.Tensor   # int32 (n_pieces,)
-    owner_bits: torch.Tensor   # int32 (ceil(n_final / 32),)
     owner_done: torch.Tensor   # int32 (O,), zeros
-    n_final: int               # output rows: base_pad with pieces, else n_out
+    bin_rows: Tuple[int, ...]
+    bin_entries: Tuple[int, ...]
+    n_entries: int             # the binned rows' entries and the owners' own
+    n_final: int               # output rows: base_pad with pieces, else every slab's rows
     store: Optional[torch.dtype]  # value type of the panels (None: no panel)
     device: torch.device
     launch: _Launch
 
     @property
-    def n_panels(self) -> int:
-        return int(self.panel_ptrs.shape[0])
-
-    @property
-    def n_runs(self) -> int:
-        return int(self.row_runs.numel())
-
-    @property
-    def n_out(self) -> int:
-        return int(self.row_ptr.numel()) - 1
+    def n_pieces(self) -> int:
+        return int(self.piece_slot.numel())
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -631,12 +621,13 @@ class EncodeRecord:
     seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
     numpy_slabs: int = 0
 
-    def mark(self, stage: str, t0: int) -> int:
+    def mark(self, stage: str, t0: int, **attrs) -> int:
         """Add the time since ``t0`` (``perf_counter_ns``) to ``stage``, and
-        record that stretch as a ``build.encode`` span; returns now."""
+        record that stretch as a ``build.encode`` span with ``attrs``;
+        returns now."""
         now = time.perf_counter_ns()
         self.seconds[stage] = self.seconds.get(stage, 0.0) + (now - t0) / 1e9
-        add_span("build.encode", t0, now, stage=stage)
+        add_span("build.encode", t0, now, stage=stage, **attrs)
         return now
 
 
@@ -768,7 +759,9 @@ def build_sell2(coo: COO, sr: Semiring, value_dtype: str = "float32",
              if piece_owner is not None else None)
     virt = torch.from_numpy(np.stack(virt_rows)).to(device) if virt_rows else None
     op = assemble(slabs, tuple(layouts), n_chunks, n, base_pad, owner, virt, device)
-    rec.mark("plan", t)
+    # how often each of the kernel's paths engages
+    rec.mark("plan", t, bin_rows=list(op.plan.bin_rows),
+             bin_entries=list(op.plan.bin_entries), pieces=op.plan.n_pieces)
     return op
 
 
@@ -832,169 +825,158 @@ def _xbase(slab: dict, lay: _SlabLayout, n_chunks: int, virt_blocks) -> torch.Te
     return base
 
 
-def _int32_bits(t: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2^32) as the int32 of the same bits."""
-    return torch.where(t >= 1 << 31, t - (1 << 32), t).to(torch.int32)
-
-
-def _work_items(item_chunks: np.ndarray, item_c0: np.ndarray) -> np.ndarray:
-    """(B, 4) int32 panel-stage blocks (panel, lane group, c0, c1): each
-    (panel, lane group) with runs, cut into the fewest near-equal chunk
-    ranges of at most BLOCK_CHUNK_CAP chunks. A panel's blocks are
-    adjacent, so that they read its stream rows at about the same time,
-    and panels with the most chunks come first."""
-    items = np.nonzero(item_chunks)[0]
-    n = item_chunks[items]
-    parts = -(-n // BLOCK_CHUNK_CAP)
-    it = np.repeat(items, parts)
-    k = np.arange(int(parts.sum())) - np.repeat(np.cumsum(parts) - parts, parts)
-    nk, pk = np.repeat(n, parts), np.repeat(parts, parts)
-    lo = item_c0[it] + k * nk // pk
-    hi = item_c0[it] + (k + 1) * nk // pk
-    groups = LANES // GROUP_LANES
-    panel = it // groups
-    panel_chunks = np.bincount(panel, weights=hi - lo)
-    blocks = np.stack([panel, it % groups, lo, hi], axis=1)
-    return blocks[np.argsort(-panel_chunks[panel], kind="stable")].astype(np.int32)
+def _panel_entries(slab: dict, lay: _SlabLayout, p0: int, p1: int, row_base: int,
+                   n_chunks: int, virt_blocks):
+    """(dp row, x column, value) of every real slot of panels [p0, p1) of a
+    layout: the slots each run aligns (:func:`_layout_runs`), less the pads,
+    which align the identity sublane 127."""
+    rows = slice(p0 * LANES, p1 * LANES)
+    sub = {"chunk": slab["chunk"][p0:p1], "wordA": slab["wordA"][rows],
+           "wordB": slab["wordB"][rows]}
+    part = lay._replace(panels=p1 - p0)
+    p, l, o, off, level = _layout_runs(sub, part)
+    w = 1 << level
+    dev = p.device
+    rep = torch.repeat_interleave(torch.arange(w.numel(), device=dev), w)
+    t = torch.arange(rep.numel(), device=dev) - (torch.cumsum(w, 0) - w)[rep]
+    j = (off & ~(w - 1))[rep] + t
+    del w, t, off, level
+    p, l = p[rep], l[rep]
+    word = sub["wordA"].view(-1, LANES, LANES)[p, l, j & 127].long()
+    a = torch.where(j < LANES, word & 127, (word >> 7) & 127)
+    del word, j
+    real = a != USABLE
+    p, l, a, rep = p[real], l[real], a[real], rep[real]
+    del real
+    b = sub["wordB"].view(-1, LANES, LANES)[p, a, l].long()
+    col = _xbase(sub, part, n_chunks, virt_blocks)[p, a, (b >> 29) & 1] + (b & 127)
+    del b
+    val = slab["vals"][rows].view(-1, LANES, LANES)[p, a, l]
+    row = row_base + o[rep] * LANES + l
+    return row, col, val
 
 
 def make_plan(slabs, layouts, n_chunks: int, piece_owner, virt_blocks, base_pad: int,
               device: torch.device) -> Sell2Plan:
-    """The kernel's plan, decoded once from wordA and wordB in torch on
-    ``device``, with the launch's arguments. Each temporary is dropped once
-    used: on the card they set the build's peak memory."""
+    """The kernel's plan, decoded once in torch on ``device`` from the
+    panels' real slots, with the launch's arguments. Each temporary is
+    dropped once used: on the card they set the build's peak memory."""
     starts, n_out = _row_starts(layouts)
-    ptrs, xbase, stores = [], [], set()
-    g_all, l_all, lev_all, row_all, lay_all, a_all, t_all = [], [], [], [], [], [], []
-    g0 = 0
-    launched = [(s, lay) for s, lay in zip(slabs, layouts) if lay.panels]
-    for li, (slab, lay) in enumerate(launched):
-        P = lay.panels
-        p, l, o, off, level = _layout_runs(slab, lay)
-        # run slot t of each run, runs in order, and its align sublane a(j)
-        w = 1 << level
-        rep = torch.repeat_interleave(torch.arange(w.numel(), device=device), w)
-        t = torch.arange(rep.numel(), device=device) - (torch.cumsum(w, 0) - w)[rep]
-        j = (off & ~(w - 1))[rep] + t
-        word = slab["wordA"].view(P, LANES, LANES)[p[rep], l[rep], j & 127].long()
-        a_all.append(torch.where(j < LANES, word & 127, (word >> 7) & 127))
-        t_all.append(t)
-        g_all.append(g0 + p)
-        l_all.append(l)
-        lev_all.append(level)
-        row_all.append((starts[lay.row0] + o * LANES + l).to(torch.int32))
-        lay_all.append(torch.full_like(p, li, dtype=torch.int32))
-        xbase.append(_xbase(slab, lay, n_chunks, virt_blocks))
-        vals = slab["vals"]
-        stores.add(vals.dtype)
-        panel = torch.arange(P, dtype=torch.int64)
-        ptrs.append(torch.stack([slab["wordB"].data_ptr() + panel * (LANES * LANES * 4),
-                                 vals.data_ptr() + panel * (LANES * LANES
-                                                            * vals.element_size())], 1))
-        g0 += P
+    rows, cols, vals, stores = [], [], [], set()
+    pad_val = None  # the slabs' own 0̄: a panel's identity sublane
+    for slab, lay in zip(slabs, layouts):
+        if not lay.panels:
+            continue
+        stores.add(slab["vals"].dtype)
+        pad_val = slab["vals"][USABLE, :1]
+        for p0 in range(0, lay.panels, PLAN_PANELS):
+            row, col, val = _panel_entries(slab, lay, p0, min(p0 + PLAN_PANELS, lay.panels),
+                                           starts[lay.row0], n_chunks, virt_blocks)
+            if col.numel() and int(col.max()) >= 1 << 31:
+                raise ValueError("sell2: x is too long for the kernel's int32 columns")
+            rows.append(row.to(torch.int32))
+            cols.append(col.to(torch.int32))
+            vals.append(val)
+            del row, col, val
     if len(stores) > 1:
         raise ValueError(f"mixed value types {stores}")
+    store = stores.pop() if stores else None
 
-    def cat(parts):
+    def cat(parts, dtype):
         """The parts in one tensor; the list is emptied, freeing them."""
-        out = torch.cat(parts) if parts else torch.zeros(0, dtype=torch.int64, device=device)
+        out = torch.cat(parts) if parts else torch.zeros(0, dtype=dtype, device=device)
         parts.clear()
         return out
 
-    def ptr(counts):
-        out = torch.zeros(counts.numel() + 1, dtype=torch.int64, device=device)
-        torch.cumsum(counts, 0, out=out[1:])
-        return out
+    row = cat(rows, torch.int32)
+    col = cat(cols, torch.int32)
+    val = cat(vals, store or torch.float32)
+    n_entries = row.numel()
+    if n_entries >= (1 << 31) - 4:
+        raise ValueError("sell2: too many entries for the kernel's int32 row pointers")
+    counts = torch.bincount(row.long(), minlength=n_out)
 
-    g, l, level, row, run_lay, a, t = (cat(parts) for parts in (
-        g_all, l_all, lev_all, row_all, lay_all, a_all, t_all))
-    n_runs = g.numel()
-    w = 1 << level
-
-    # run ids in slot order: by (panel, lane group), widest first, so that
-    # each run lies aligned to its width inside one 128-slot chunk
-    groups = LANES // GROUP_LANES
-    item = g * groups + l // GROUP_LANES
-    order = torch.sort(item * 8 + 7 - level, stable=True).indices
-    run_id = torch.empty_like(order)
-    run_id[order] = torch.arange(n_runs, device=device)
-    item_slots = torch.zeros(g0 * groups, dtype=torch.int64, device=device).index_add_(
-        0, item, w)
-    item_chunks = -(-item_slots // CHUNK_SLOTS)
-    item_c0 = ptr(item_chunks)[:-1]
-    slot_before = ptr(item_slots)[:-1]
-    ws = w[order]
-    pos = item_c0[item[order]] * CHUNK_SLOTS + torch.cumsum(ws, 0) - ws - slot_before[
-        item[order]]
-    del g, item, order, ws, slot_before
-    n_chunk = int(item_chunks.sum())
-    rep = torch.repeat_interleave(torch.arange(n_runs, device=device), w)
-    word = a * GROUP_LANES + l[rep] % GROUP_LANES + torch.where(
-        t == 0, (level[rep] + 1) << 12, 0)
-    del a, l, level, w
-    slot_word = torch.zeros(n_chunk * CHUNK_SLOTS, dtype=torch.int64, device=device)
-    slot_word[pos[run_id[rep]] + t] = word
-    del rep, word, t
-    slot_word = torch.where(slot_word >= 1 << 15, slot_word - (1 << 16),
-                            slot_word).to(torch.int16)
-    chunk_run0 = torch.searchsorted(
-        pos, torch.arange(n_chunk + 1, device=device) * CHUNK_SLOTS).to(torch.int32)
-    del pos
-    blocks = _work_items(item_chunks.cpu().numpy(), item_c0.cpu().numpy())
-
-    # the row stage: each dp row's runs in (layout, panel) order
-    by_row = torch.argsort(row, stable=True)
-    row_s, lay_s = row[by_row], run_lay[by_row]
-    del run_lay
-    opens = torch.zeros(n_runs, dtype=torch.bool, device=device)
-    opens[1:] = (row_s[1:] == row_s[:-1]) & (lay_s[1:] != lay_s[:-1])
-    del row_s, lay_s
-    row_runs = run_id[by_row].to(torch.int32)
-    del run_id, by_row
-    row_runs[opens] |= -(1 << 31)  # bit 31: the run opens a layout
-    del opens
-    row_ptr = ptr(torch.bincount(row, minlength=n_out)).to(torch.int32)
-    del row
-
+    # the positions: pieces, then every output row that is no owner, in
+    # bins; then the owners' own rows, which their folds reduce
     if piece_owner is not None:
-        n_final = base_pad
-        piece_ptr = ptr(torch.bincount(piece_owner.long(), minlength=base_pad))
+        n_final, n_pieces = base_pad, int(piece_owner.numel())
+        owner_rows = piece_owner.long()
+        piece_ptr = torch.zeros(base_pad + 1, dtype=torch.int64, device=device)
+        torch.cumsum(torch.bincount(owner_rows, minlength=base_pad), 0, out=piece_ptr[1:])
         own = torch.nonzero(piece_ptr[1:] > piece_ptr[:-1]).flatten()
         owners = torch.stack([own, piece_ptr[own], piece_ptr[own + 1]], 1)
         piece_slot = torch.repeat_interleave(torch.arange(own.numel(), device=device),
                                              owners[:, 2] - owners[:, 1])
+        kept = torch.ones(n_final, dtype=torch.bool, device=device)
+        kept[own] = False
+        out_rows = torch.nonzero(kept).flatten()
+        pieces = torch.arange(n_pieces, device=device)
+        pos_row = torch.cat([base_pad + pieces, out_rows])
+        dest = torch.cat([n_final + pieces, out_rows])
+        del piece_ptr, kept, out_rows, pieces
     else:
-        n_final = n_out
-        own = piece_slot = torch.zeros(0, dtype=torch.int64, device=device)
+        n_final, n_pieces = n_out, 0
+        pos_row = dest = torch.arange(n_out, device=device)
+        own = torch.zeros(0, dtype=torch.int64, device=device)
         owners = torch.zeros((0, 3), dtype=torch.int64, device=device)
-    owner_bits = torch.zeros(-(-n_final // 32), dtype=torch.int64, device=device)
-    owner_bits.index_add_(0, own >> 5, 1 << (own & 31))
+        piece_slot = torch.zeros(0, dtype=torch.int64, device=device)
+    plen = counts[pos_row]
+    bins = torch.zeros_like(plen)
+    for m in BIN_MAX_LEN:
+        bins += plen <= m
+    bins[:n_pieces] = 0
+    order = torch.sort(bins, stable=True).indices
+    pos_row, dest, plen, bins = pos_row[order], dest[order], plen[order], bins[order]
+    bin_rows = torch.bincount(bins, minlength=_N_BINS).tolist()
+    bin_entries = torch.zeros(_N_BINS, dtype=torch.int64, device=device).index_add_(
+        0, bins, plen).tolist()
+    del order, bins
+    pos_row, dest = torch.cat([pos_row, own]), torch.cat([dest, own])
+    plen = torch.cat([plen, counts[own]])
+    del counts, own
+    rank = torch.full((n_out,), -1, dtype=torch.int64, device=device)
+    rank[pos_row] = torch.arange(pos_row.numel(), device=device)
+    del pos_row
 
-    xb = (torch.cat(xbase) if xbase else torch.zeros((0, LANES, 2), dtype=torch.int64,
-                                                      device=device))
-    if xb.numel() and int(xb.max()) >= 1 << 31:
-        raise ValueError("sell2: x is too long for the kernel's int32 block columns")
-    store = stores.pop() if stores else None
+    # the entries in position order, each row's by column
+    key = rank[row.long()]
+    del row, rank
+    if n_entries and int(key.min()) < 0:
+        raise ValueError("sell2: an entry lies in a row that no position holds")
+    key.bitwise_left_shift_(31).bitwise_or_(col)
+    del col
+    key, idx = torch.sort(key)
+    val = val[idx]
+    del idx
+    col = (key & 0x7FFFFFFF).to(torch.int32)
+    del key
+    pad = -n_entries % 4
+    if pad:
+        col = torch.cat([col, torch.zeros(pad, dtype=torch.int32, device=device)])
+        val = torch.cat([val, pad_val.expand(pad)])
+    row_ptr = torch.zeros(plen.numel() + 1, dtype=torch.int64, device=device)
+    torch.cumsum(plen, 0, out=row_ptr[1:])
+    del plen
+    bin_pos, bin_block = [0], [0]
+    for k, lanes in enumerate(BIN_LANES):
+        bin_pos.append(bin_pos[-1] + bin_rows[k])
+        bin_block.append(bin_block[-1] + -(-bin_rows[k] * lanes // ROW_THREADS))
     tensors = dict(
-        panel_ptrs=(torch.cat(ptrs) if ptrs else torch.zeros((0, 2), dtype=torch.int64)
-                    ).to(device),
-        xbase=xb.to(torch.int32).contiguous(),
-        blocks=torch.from_numpy(blocks).reshape(-1, 4).to(device),
-        slot_word=slot_word,
-        chunk_run0=chunk_run0,
-        row_ptr=row_ptr,
-        row_runs=row_runs,
+        row_ptr=row_ptr.to(torch.int32),
+        row_dest=dest.to(torch.int32),
+        cols=col,
+        vals=val,
         owners=owners.to(torch.int32).contiguous(),
         piece_slot=piece_slot.to(torch.int32),
-        owner_bits=_int32_bits(owner_bits),
         owner_done=torch.zeros(owners.shape[0], dtype=torch.int32, device=device),
     )
     device = tensors["row_ptr"].device
-    launch = _Launch(*(tensors[f].data_ptr() for f in _LAUNCH_TENSORS),
-                     tensors["blocks"].shape[0], n_runs, piece_slot.numel(), n_final,
-                     int(base_pad), -1 if store is None else _build.STRIP_CODES[store],
-                     device.index or 0)
-    return Sell2Plan(slabs=slabs, n_final=n_final, store=store, device=device,
+    n_bins = ctypes.c_int * (_N_BINS + 1)
+    launch = _Launch(*(tensors[f].data_ptr() for f in _LAUNCH_TENSORS), n_bins(*bin_pos),
+                     n_bins(*bin_block), n_final, n_pieces,
+                     -1 if store is None else _build.STRIP_CODES[store], device.index or 0)
+    return Sell2Plan(slabs=slabs, bin_rows=tuple(bin_rows), bin_entries=tuple(bin_entries),
+                     n_entries=n_entries, n_final=n_final, store=store, device=device,
                      launch=launch, **tensors)
 
 
@@ -1143,9 +1125,9 @@ _DP_ARGTYPES = [ctypes.POINTER(_Launch), ctypes.c_void_p, ctypes.c_longlong,
 
 
 def sell2_dp_cuda(op: Sell2Operand, x: torch.Tensor, sr: Semiring) -> torch.Tensor:
-    """The sell2 dp in one call of the kernel library (a panel launch and a
-    row launch) over every panel of the operand, with the arguments its plan
-    made once: the carrier-typed dp of :func:`dp_sell2`, pieces folded.
+    """The sell2 dp in one launch of the kernel library over the operand's
+    plan, with the arguments made once beside it: the carrier-typed dp of
+    :func:`dp_sell2`, pieces folded.
     Raises on a plan that does not belong to the operand's slabs, on what
     the kernel does not take and on a refused launch."""
     plan = op.plan
@@ -1160,10 +1142,9 @@ def sell2_dp_cuda(op: Sell2Operand, x: torch.Tensor, sr: Semiring) -> torch.Tens
     if x.dtype != sr.dtype or sr.dtype != carrier:
         x = x.to(sr.dtype).to(carrier)
     x = x.contiguous()
-    # the output rows, then scratch for the run and the piece values
+    # the output rows, then scratch for the piece values
     launch = plan.launch
-    buf = torch.empty(launch.n_final + launch.n_runs + launch.n_pieces, dtype=carrier,
-                      device=dev)
+    buf = torch.empty(launch.n_final + launch.n_pieces, dtype=carrier, device=dev)
     fn = _build.function("sell2", "sh_sell2_dp", _DP_ARGTYPES)
     # the raw current stream: torch.cuda.current_stream builds a Stream object
     # on every call, which costs more host time than the rest of the enqueue

@@ -141,18 +141,12 @@ CONTRACTS: Dict[str, Dict[str, Contract]] = {
         "piece_owner": _index(lambda c: (0, c.n_rows)),
         "virt_blocks": _index(lambda c: (0, c.op.n_chunks * 128)),
         "plan.slabs.[].*": _SELL2_VIEW,
-        "plan.panel_ptrs": _skip("device addresses of the panels"),
-        "plan.xbase": _index(lambda c: (0, c.op.n_chunks * 128 * 128)),
-        "plan.blocks": _skip("work items (panel, lane group, chunk range) decoded from "
-                             "the words; tests/test_torch_sell2.py holds the plan's "
-                             "invariants"),
-        "plan.slot_word": _skip("packed align slot and capture level per run slot"),
-        "plan.chunk_run0": _index(lambda c: (0, c.op.plan.n_runs + 1)),
-        "plan.row_ptr": _index(lambda c: (0, c.op.plan.n_runs + 1)),
-        "plan.row_runs": _skip("run ids with a new-layout flag in bit 31"),
+        "plan.row_ptr": _index(lambda c: (0, c.op.plan.n_entries + 1)),
+        "plan.row_dest": _index(lambda c: (0, c.op.plan.n_final + c.op.plan.n_pieces)),
+        "plan.cols": _COLS,
+        "plan.vals": VALUE,
         "plan.owners": _index(lambda c: (0, c.r_hi)),
         "plan.piece_slot": _index(lambda c: (0, c.op.plan.owners.shape[0])),
-        "plan.owner_bits": _skip("a bit set over the output rows"),
         "plan.owner_done": _index(lambda c: (0, 1)),  # 0 between calls
     },
 }

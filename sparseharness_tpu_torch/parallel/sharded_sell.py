@@ -16,7 +16,7 @@ tile flags) and its streams padded with identity panels, whose index words
 route every output row to a lane that no run captures, so padding adds
 nothing. Each rank then makes the kernel's plan of its own shard
 (``ops/sell2.py:make_plan``, through ``assemble``), in which the identity
-panels hold no run.
+panels hold no entry.
 """
 
 from __future__ import annotations

@@ -6,10 +6,13 @@ JAX side on its NumPy path). The plain dp, on the JAX-built operand carried
 over by interop and on the port-built one, must equal JAX's dp_sell2 in
 interpret mode: bit for bit for the six min/max/or semirings, plus_times
 within 1e-5 · max(1, |dp|, Σ|a·x|). The CUDA kernel cannot run here, so
-its plan is held by a torch model of the kernel (products per work item,
-run values in the butterfly's pairwise order, rows and pieces reduced from
-the plan), which must give the plain version's bits for every semiring,
-and by the plan's own invariants.
+its plan is held by a torch model of the kernel (each position's entries
+taken by its bin's lanes, 4 a chunk, the lanes combined by the XOR
+butterfly, pieces folded into their owners in order), which must give the
+plain version's bits for the six semirings and plus_times within the same
+tolerance, and by the plan's own invariants: every real nonzero once and
+no pad, each dp row's entries contiguous, bins by length, every piece
+reaching its owner once.
 """
 
 import dataclasses
@@ -258,70 +261,67 @@ def test_virtual_chunks_pack_denser():
 
 
 def _kernel_model(op, x, sr):
-    """What csrc/sell2.cu computes, in torch, driven by the plan: each work
-    item's products for its 32-lane group through xbase, each 128-slot chunk
-    reduced by the butterfly (pairwise ⊕ of slots 2i and 2i + 1, level by
-    level) with each run's value taken at its first slot and written at its
-    id (the chunk's first id plus the starts before it); then each output
-    row's runs ⊕-reduced per layout and across layouts, and each owner's
-    own row and pieces folded one after another."""
+    """What csrc/sell2.cu computes, in torch, driven by the plan: in bin k
+    the lanes BIN_LANES[k] of a position take chunks sub, sub + V, ... of
+    4 entries of its row (the entries of the row inside each chunk),
+    ⊕-accumulating them in order from 0̄; the lanes combine by the XOR
+    butterfly, lane masks V/2, ..., 1; each owner then adds to its own
+    row's value its pieces folded one after another from the reduction's
+    identity."""
     carrier, add, mul, _, zero, _ = _carrier(sr)
     plan = op.plan
     x = x.to(sr.dtype).to(carrier)
-    launched = [s for s, lay in zip(op.slabs, op.layouts) if lay.panels]
-    run_vals = torch.empty(plan.n_runs, dtype=carrier)
-    if launched:
-        wb = torch.cat([s["wordB"].view(-1, 128, 128) for s in launched]).long()
-        vals = torch.cat([s["vals"].view(-1, 128, 128) for s in launched])
-        vals = vals.float() if vals.dtype == torch.bfloat16 else vals
-    words = plan.slot_word.long().view(-1, 128) & 0xFFFF
-    group = sell2.GROUP_LANES
-    for g, q, c0, c1 in plan.blocks.tolist():
-        b = wb[g, :, q * group:(q + 1) * group]
-        xi = plan.xbase[g].long()[torch.arange(128)[:, None], (b >> 29) & 1] + (b & 127)
-        xv = torch.where(xi < x.numel(), x[xi.clamp(max=x.numel() - 1)],
-                         torch.full_like(x[:1], zero))
-        prod = mul(xv, vals[g, :, q * group:(q + 1) * group]).reshape(-1)
-        w = words[c0:c1]
-        level_sums = [prod[w & 0xFFF]]
-        while level_sums[-1].shape[1] > 1:
-            s = level_sums[-1]
-            level_sums.append(add(s[:, 0::2], s[:, 1::2]))
-        lv = w >> 12
-        starts = lv > 0
-        ids = plan.chunk_run0[c0:c1].long()[:, None] + torch.cumsum(starts.long(), 1) - 1
-        ci, pos = torch.nonzero(starts, as_tuple=True)
-        v = lv[ci, pos] - 1
-        for level in v.unique().tolist():
-            sel = v == level
-            run_vals[ids[ci[sel], pos[sel]]] = level_sums[level][ci[sel], pos[sel] >> level]
+    vals = plan.vals.float() if plan.vals.dtype == torch.bfloat16 else plan.vals.to(carrier)
+    cols = plan.cols.long()
     rp = plan.row_ptr.long()
-    counts = rp[1:] - rp[:-1]
-    e = plan.row_runs.long()
-    zero_t = torch.full((plan.n_out,), zero, dtype=carrier)
-    total, part = zero_t.clone(), zero_t.clone()
-    for k in range(int(counts.max())):
-        has = counts > k
-        idx = (rp[:-1] + k).clamp(max=max(e.numel() - 1, 0))
-        opens = has & (e[idx] < 0)
-        total = torch.where(opens, add(total, part), total)
-        part = torch.where(opens, zero_t, part)
-        part = torch.where(has, add(part, run_vals[e[idx] & 0x7FFFFFFF]), part)
-    dp = torch.where(counts > 0, add(total, part), total)
-    out = dp[:plan.n_final].clone()
+    buf = torch.full((plan.n_final + plan.n_pieces,), zero, dtype=carrier)
+    p0 = 0
+    for k, lanes in enumerate(sell2.BIN_LANES):
+        p1 = p0 + plan.bin_rows[k]
+        k0, k1 = rp[p0:p1, None], rp[p0 + 1:p1 + 1, None]
+        sub = torch.arange(lanes)
+        acc = torch.full((p1 - p0, lanes), zero, dtype=carrier)
+        chunks = (k1 + 3) // 4 - k0 // 4
+        for r in range(int((-(-chunks // lanes)).max()) if p1 > p0 else 0):
+            c = k0 // 4 + sub + r * lanes
+            for i in range(4):
+                e = 4 * c + i
+                take = (c < (k1 + 3) // 4) & (e >= k0) & (e < k1)
+                e = e.clamp(max=cols.numel() - 1)
+                acc = torch.where(take, add(acc, mul(x[cols[e]], vals[e])), acc)
+        m = lanes // 2
+        while m:
+            acc = add(acc, acc[:, sub ^ m])
+            m //= 2
+        buf[plan.row_dest[p0:p1].long()] = acc[:, 0]
+        p0 = p1
     ident = _SEGMENT_IDENTITY[_SEGMENT_REDUCE[add], carrier]
-    for owner, k0, k1 in plan.owners.tolist():
+    n_pos = sum(plan.bin_rows)
+    for o, (owner, q0, q1) in enumerate(plan.owners.tolist()):
+        own = torch.tensor(zero, dtype=carrier)
+        for e in range(int(rp[n_pos + o]), int(rp[n_pos + o + 1])):
+            own = add(own, mul(x[cols[e]], vals[e]))
         seg = torch.tensor(ident, dtype=carrier)
-        for k in range(k0, k1):
-            seg = add(seg, dp[op.base_pad + k])
-        out[owner] = add(dp[owner], seg)
-    return out
+        for q in range(q0, q1):
+            seg = add(seg, buf[plan.n_final + q])
+        buf[owner] = add(own, seg)
+    return buf[:plan.n_final]
+
+
+def _assert_model_matches(name, got, want):
+    """The six min/max/or semirings bit for bit; plus_times, which the
+    kernel sums in its own order, within PT_DELTA · max(1, |plain|)."""
+    assert got.dtype == want.dtype
+    if name == "plus_times":
+        assert bool(((got - want).abs() <= PT_DELTA * want.abs().clamp(min=1.0)).all())
+    else:
+        assert torch.equal(got, want), name
 
 
 @pytest.mark.parametrize("matrix", ["hub_row", "pieces", "virtual", "multi_slab"])
 def test_kernel_model_equals_plain(matrix):
-    """The plan drives the kernel's arithmetic to the plain version's bits,
-    plus_times included."""
+    """The plan drives the kernel's arithmetic to the plain version's
+    values: the six min/max/or semirings bit for bit, pads dropped."""
     for name in NAMES:
         sr = get_semiring(name)
         coo = MATRICES[matrix](tf)
@@ -330,123 +330,136 @@ def test_kernel_model_equals_plain(matrix):
         op = sell2.build_sell2(coo, sr, device="cpu")
         x = torch.from_numpy(_x(sr, coo.shape[1], seed=6))
         want = sell2.dp_sell2_plain(op, x, sr, n_rows=coo.shape[0])
-        got = _kernel_model(op, x, sr)
-        assert got.dtype == want.dtype and torch.equal(got, want), name
+        _assert_model_matches(name, _kernel_model(op, x, sr), want)
 
 
-@pytest.mark.parametrize("cap", [1, 3])
-def test_kernel_model_equals_plain_with_split_items(cap, monkeypatch):
-    """With a small chunk cap every (panel, lane group) is cut over several
-    blocks, each computing the group's products again: the same bits."""
-    monkeypatch.setattr(sell2, "BLOCK_CHUNK_CAP", cap)
+@pytest.mark.parametrize("bounds", [(256, 256, 256, 256, 256), (-1, -1, -1, -1, -1)],
+                         ids=["one_lane", "warp"])
+def test_kernel_model_equals_plain_with_other_bins(bounds, monkeypatch):
+    """Every row in the one-lane bin, or every row in the warp's: the bins
+    change who takes a row, never its value (pieces stay in the warp's)."""
+    monkeypatch.setattr(sell2, "BIN_MAX_LEN", bounds)
     for name in ("plus_times", "min_plus"):
         sr = get_semiring(name)
         coo = MATRICES["pieces"](tf)
         op = sell2.build_sell2(coo, sr, device="cpu")
-        blocks = op.plan.blocks
-        assert int((blocks[:, 3] - blocks[:, 2]).max()) <= cap
-        assert blocks.shape[0] > len({(g, q) for g, q in blocks[:, :2].tolist()})
+        rows = op.plan.bin_rows
+        assert rows[0] == op.plan.n_pieces if bounds[0] > 0 else sum(rows) == rows[0]
         x = torch.from_numpy(_x(sr, coo.shape[1], seed=8))
-        assert torch.equal(_kernel_model(op, x, sr),
-                           sell2.dp_sell2_plain(op, x, sr, n_rows=coo.shape[0])), name
+        _assert_model_matches(name, _kernel_model(op, x, sr),
+                              sell2.dp_sell2_plain(op, x, sr, n_rows=coo.shape[0]))
 
 
-def _runs_of_slots(plan):
-    """(chunk, position, level) of every run start in the slot words."""
-    words = plan.slot_word.long().view(-1, 128) & 0xFFFF
-    c, pos = torch.nonzero(words >> 12, as_tuple=True)
-    return c, pos, (words[c, pos] >> 12) - 1
+def _plan_triples(plan, base_pad):
+    """(dp row, column, value) of every entry of the plan, position by
+    position: a piece's dp row is base_pad + its index."""
+    rp = plan.row_ptr.long()
+    dest = plan.row_dest.long()
+    row = torch.where(dest < plan.n_final, dest, base_pad + dest - plan.n_final)
+    rows = torch.repeat_interleave(row, rp[1:] - rp[:-1])
+    n = int(rp[-1])
+    return rows, plan.cols[:n].long(), plan.vals[:n]
 
 
 def test_plan_counts_every_nonzero_once():
-    """Each run is one (panel, row) group, so the runs of a row cover its
-    entries once: the run widths hold every nonzero, and the row lists name
-    every run once."""
-    coo = MATRICES["pieces"](tf)
-    op = sell2.build_sell2(coo, PLUS_TIMES, device="cpu")
-    plan = op.plan
-    _, _, level = _runs_of_slots(plan)
-    assert plan.n_runs == level.numel() <= coo.nnz
-    assert int((1 << level).sum()) >= coo.nnz
-    assert int(plan.row_ptr[-1]) == plan.n_runs
-    assert sorted((plan.row_runs.long() & 0x7FFFFFFF).tolist()) == list(range(plan.n_runs))
-    assert plan.n_out == sum({lay.row0: lay.rows for lay in op.layouts}.values())
+    """The plan's entries are the folded matrix's, each once, split rows'
+    in their pieces, and no pad: rebuilt from the COO by the encoder's own
+    fold and heavy split, independently of the panels."""
+    sr = PLUS_TIMES
+    coo = MATRICES["hub_row"](tf)
+    op = sell2.build_sell2(coo, sr, device="cpu")
+    s = tf.fold_duplicates(coo, np.add).sorted_by_row()
+    k_rows, k_cols, k_vals, owner, _ = sell2._heavy_split(
+        s, s.vals.astype(np.float32), coo.shape[0], op.base_pad)
+    assert owner is not None and op.plan.n_entries == s.nnz < coo.nnz
+    rows, cols, vals = _plan_triples(op.plan, op.base_pad)
+    got = sorted(zip(rows.tolist(), cols.tolist(), vals.tolist()))
+    assert got == sorted(zip(k_rows.tolist(), k_cols.tolist(), k_vals.tolist()))
 
 
 @pytest.mark.parametrize("matrix", ["hub_row", "pieces", "virtual", "multi_slab"])
-def test_plan_work_items_hold_every_run_once(matrix):
-    """The work items' chunk ranges tile the chunks, none over the cap, a
-    panel's items adjacent and panels with the most chunks first; every run
-    lies aligned inside one chunk, so inside exactly one work item, and the
-    chunks' first ids count the runs."""
-    plan = sell2.build_sell2(MATRICES[matrix](tf), PLUS_TIMES, device="cpu").plan
-    blocks = plan.blocks.long()
-    size = blocks[:, 3] - blocks[:, 2]
-    assert bool((size >= 1).all()) and int(size.max()) <= sell2.BLOCK_CHUNK_CAP
-    panels = torch.unique_consecutive(blocks[:, 0])
-    assert panels.numel() == torch.unique(blocks[:, 0]).numel()
-    per_panel = torch.zeros(plan.n_panels, dtype=torch.int64).index_add_(0, blocks[:, 0], size)
-    assert torch.equal(per_panel[panels], per_panel[panels].sort(descending=True).values)
-    by_start = blocks[blocks[:, 2].argsort()]
-    n_chunks = plan.chunk_run0.numel() - 1
-    assert int(by_start[0, 2]) == 0 and int(by_start[-1, 3]) == n_chunks
-    assert torch.equal(by_start[1:, 2], by_start[:-1, 3])
-    c, pos, level = _runs_of_slots(plan)
-    assert bool((pos % (1 << level) == 0).all())
-    assert bool((pos + (1 << level) <= sell2.CHUNK_SLOTS).all())
-    assert torch.equal(plan.chunk_run0.long(),
-                       torch.searchsorted(c, torch.arange(n_chunks + 1)))
-    assert int(plan.chunk_run0[-1]) == plan.n_runs
-
-
-def _runs_from_layouts(op):
-    """(row, layout, panel, id) of every run, found without the plan's row
-    lists: each run of each layout from its routes (sell2._layout_runs),
-    matched by (panel, lane, align sublane of its first slot) to the run
-    that the slot words start in the work items, whose id counts from the
-    chunk's first."""
+def test_plan_rows_are_contiguous_and_binned(matrix):
+    """Each position's entries are one stretch, by column, the stretches in
+    position order; bins run widest first, each row in the bin of its
+    length, pieces first in bin 0 and each bin's rows ascending; the bin
+    counts sum to the positions and the entries; the stream is padded to
+    whole chunks of 4 with column 0 and 0̄."""
+    sr = get_semiring("min_plus")
+    op = sell2.build_sell2(MATRICES[matrix](tf), sr, device="cpu")
     plan = op.plan
-    starts, _ = sell2._row_starts(op.layouts)
-    launched = [(s, lay) for s, lay in zip(op.slabs, op.layouts) if lay.panels]
-    run_of = {}
-    g0 = 0
-    for li, (slab, lay) in enumerate(launched):
-        p, l, o, off, _ = sell2._layout_runs(slab, lay)
-        word = slab["wordA"].view(lay.panels, 128, 128)[p, l, off & 127].long()
-        a = torch.where(off < 128, word & 127, (word >> 7) & 127)
-        for pi, li_, oi, ai in zip(p.tolist(), l.tolist(), o.tolist(), a.tolist()):
-            run_of[(g0 + pi, li_, ai)] = (starts[lay.row0] + oi * 128 + li_, li, g0 + pi)
-        g0 += lay.panels
-    words = plan.slot_word.long().view(-1, 128) & 0xFFFF
-    run0 = plan.chunk_run0.long()
-    runs = []
-    for g, q, c0, c1 in plan.blocks.tolist():
-        for c in range(c0, c1):
-            for i, slot in enumerate(torch.nonzero(words[c] >> 12).flatten().tolist()):
-                w = int(words[c, slot]) & 0xFFF
-                runs.append(run_of[(g, q * sell2.GROUP_LANES + (w & 31), w >> 5)]
-                            + (int(run0[c]) + i,))
-    assert len(runs) == plan.n_runs == len(run_of)
-    return runs
-
-
-@pytest.mark.parametrize("matrix", ["hub_row", "pieces", "virtual", "multi_slab"])
-def test_plan_row_lists_rebuilt_from_layouts(matrix):
-    """The row order rebuilt independently of the plan's row lists: row r's
-    runs, row_runs[row_ptr[r]:row_ptr[r + 1]], in (layout, panel) order,
-    and bit 31 set on exactly each layout's first run in a row, the row's
-    first run aside."""
-    op = sell2.build_sell2(MATRICES[matrix](tf), PLUS_TIMES, device="cpu")
-    plan = op.plan
-    runs = sorted(_runs_from_layouts(op))
-    e = plan.row_runs.long()
-    assert (e & 0x7FFFFFFF).tolist() == [run[3] for run in runs]
-    opens = [k > 0 and runs[k][0] == runs[k - 1][0] and runs[k][1] != runs[k - 1][1]
-             for k in range(len(runs))]
-    assert (e < 0).tolist() == opens and any(opens)
     rp = plan.row_ptr.long()
-    row_at = torch.repeat_interleave(torch.arange(plan.n_out), rp[1:] - rp[:-1])
-    assert row_at.tolist() == [run[0] for run in runs]
+    lens = rp[1:] - rp[:-1]
+    assert int(rp[0]) == 0 and bool((lens >= 0).all())
+    assert sum(plan.bin_rows) + plan.owners.shape[0] == plan.row_dest.numel()
+    n_pos = sum(plan.bin_rows)
+    assert sum(plan.bin_entries) == int(rp[n_pos]) and int(rp[-1]) == plan.n_entries
+    assert plan.cols.numel() == plan.vals.numel() == -(-plan.n_entries // 4) * 4
+    assert bool((plan.cols[plan.n_entries:] == 0).all())
+    assert bool((plan.vals[plan.n_entries:] == sr.zero).all())
+    cols = plan.cols.long()
+    within = torch.repeat_interleave(torch.arange(lens.numel()), lens)
+    steps = (cols[1:plan.n_entries] > cols[:plan.n_entries - 1]) | (within[1:] != within[:-1])
+    assert bool(steps.all())
+    dest = plan.row_dest.long()
+    p0 = 0
+    for k, rows in enumerate(plan.bin_rows):
+        d, n = dest[p0:p0 + rows], lens[p0:p0 + rows]
+        assert int(n.sum()) == plan.bin_entries[k]
+        piece = d >= plan.n_final
+        if k == 0:
+            assert bool(piece[:plan.n_pieces].all()) and not bool(piece[plan.n_pieces:].any())
+            n = n[plan.n_pieces:]
+        else:
+            assert not bool(piece.any())
+        out = d[~piece]
+        assert bool((out[1:] > out[:-1]).all())
+        if k:
+            assert bool((n <= sell2.BIN_MAX_LEN[k - 1]).all())
+        if k < len(sell2.BIN_MAX_LEN):
+            assert bool((n > sell2.BIN_MAX_LEN[k]).all())
+        p0 += rows
+
+
+@pytest.mark.parametrize("matrix", ["hub_row", "pieces", "virtual", "multi_slab"])
+def test_plan_rows_rebuilt_from_layouts(matrix):
+    """Every real slot of the panels, found without the plan: each run of
+    each layout from its routes (sell2._layout_runs), its aligned slots'
+    sublanes, and the slot's lane and way from wordB; the slots whose
+    sublane is the identity row are the pads. The plan holds exactly the
+    real ones, at their dp rows, and the output rows it names are every
+    row below n_final but the owners."""
+    sr = PLUS_TIMES
+    op = sell2.build_sell2(MATRICES[matrix](tf), sr, device="cpu")
+    starts, _ = sell2._row_starts(op.layouts)
+    want, pads = [], 0
+    for slab, lay in zip(op.slabs, op.layouts):
+        if not lay.panels:
+            continue
+        p, l, o, off, level = sell2._layout_runs(slab, lay)
+        wa = slab["wordA"].view(lay.panels, 128, 128).numpy()
+        wb = slab["wordB"].view(lay.panels, 128, 128).numpy()
+        xb = sell2._xbase(slab, lay, op.n_chunks, op.virt_blocks).numpy()
+        vals = slab["vals"].view(lay.panels, 128, 128).numpy()
+        for pi, li, oi, fi, vi in zip(p.tolist(), l.tolist(), o.tolist(), off.tolist(),
+                                      level.tolist()):
+            for j in range(fi, fi + (1 << vi)):
+                w = int(wa[pi, li, j & 127])
+                a = w & 127 if j < 128 else (w >> 7) & 127
+                if a == sell2.USABLE:
+                    pads += 1
+                    continue
+                b = int(wb[pi, a, li])
+                want.append((starts[lay.row0] + oi * 128 + li,
+                             int(xb[pi, a, (b >> 29) & 1]) + (b & 127), float(vals[pi, a, li])))
+    rows, cols, vals = _plan_triples(op.plan, op.base_pad)
+    assert sorted(zip(rows.tolist(), cols.tolist(), vals.tolist())) == sorted(want)
+    dest = op.plan.row_dest.long()[:sum(op.plan.bin_rows)]
+    owners = op.plan.owners[:, 0].tolist()
+    assert sorted(dest[dest < op.plan.n_final].tolist()) == [
+        r for r in range(op.plan.n_final) if r not in set(owners)]
+    assert op.plan.row_dest[dest.numel():].tolist() == owners
+    if matrix != "multi_slab":
+        assert pads > 0
 
 
 @pytest.mark.parametrize("matrix", ["hub_row", "pieces"])
@@ -459,12 +472,32 @@ def test_plan_reaches_every_piece_once_from_its_owner(matrix):
     for o, (row, k0, k1) in enumerate(owners.tolist()):
         assert bool((owner[k0:k1] == row).all())
         assert bool((plan.piece_slot[k0:k1] == o).all())
-    assert plan.piece_slot.numel() == owner.numel()
+    assert plan.piece_slot.numel() == owner.numel() == plan.n_pieces
     assert not bool(plan.owner_done.any())
-    bits = plan.owner_bits.long() & 0xFFFFFFFF
-    marked = [r for r in range(plan.n_final) if (int(bits[r >> 5]) >> (r & 31)) & 1]
-    assert marked == sorted(owners[:, 0].tolist())
+    # the pieces open bin 0 in piece order; the owners' own rows follow the
+    # bins, one position each in owner order
+    n_pos = sum(plan.bin_rows)
+    assert plan.row_dest[:plan.n_pieces].tolist() == list(
+        range(plan.n_final, plan.n_final + plan.n_pieces))
+    assert plan.row_dest[n_pos:].tolist() == owners[:, 0].tolist()
+    assert not set(owners[:, 0].tolist()) & set(plan.row_dest[:n_pos].tolist())
     assert plan.n_final == op.base_pad
+
+
+def test_plan_counts_reach_the_plan_span():
+    """The build's ``build.encode`` span at stage ``plan`` carries the
+    plan's bin and piece counts."""
+    from sparseharness_tpu_torch.utils import timing
+
+    timing.start_recording()
+    try:
+        op = sell2.build_sell2(MATRICES["pieces"](tf), PLUS_TIMES, device="cpu")
+    finally:
+        rec = timing.stop_recording()
+    (span,) = [s for s in rec if s.name == "build.encode" and s.attrs.get("stage") == "plan"]
+    assert span.attrs["bin_rows"] == list(op.plan.bin_rows)
+    assert span.attrs["bin_entries"] == list(op.plan.bin_entries)
+    assert span.attrs["pieces"] == op.plan.n_pieces > 0
 
 
 def test_stale_plan_is_refused():
@@ -483,10 +516,14 @@ def test_stale_plan_is_refused():
 
 
 def test_kernel_constants_match_plan():
-    """The kernel source's lane group and chunk cap are the plan's."""
+    """The kernel source's bins, their lanes and its block size are the
+    plan's."""
     src = (Path(sell2.__file__).parent / "csrc" / "sell2.cu").read_text()
-    assert f"kGroupLanes = {sell2.GROUP_LANES};" in src
-    assert f"kBlockChunkCap = {sell2.BLOCK_CHUNK_CAP};" in src
+    assert f"kSell2Bins = {len(sell2.BIN_LANES)};" in src
+    lanes = ", ".join(str(v) for v in sell2.BIN_LANES)
+    assert f"kBinLanes[kSell2Bins] = {{{lanes}}};" in src
+    assert f"kRowThreads = {sell2.ROW_THREADS};" in src
+    assert len(sell2.BIN_MAX_LEN) == len(sell2.BIN_LANES) - 1
 
 
 def test_spmv_gold_gate_on_cpu():

@@ -199,9 +199,9 @@ def test_builder_arrays_equal_jax(shards, matrix, name, value_dtype):
 
 def test_each_rank_plans_its_own_panels():
     """A rank's operand holds its panels (identity padding included) with a
-    plan made for them; the identity panels hold no run."""
+    plan made for them; the identity panels hold no entry."""
     op, _ = tss.build_sharded_sell(_heavy(tf), TREG["min_plus"], 2, device="cpu")
-    runs = []
+    entries = []
     for rank in range(2):
         mesh = Mesh(rank=rank, size=2, device=torch.device("cpu"), backend="gloo")
         local = tss.place_sell_shard(mesh, op)
@@ -209,8 +209,8 @@ def test_each_rank_plans_its_own_panels():
         for s, stacked in zip(local.slabs, op.slabs):
             if s is not None:
                 np.testing.assert_array_equal(s["wordA"].numpy(), stacked["wordA"][rank].numpy())
-        runs.append(local.plan.n_runs)
-    # one operand built for each rank alone holds the same runs
+        entries.append(local.plan.n_entries)
+    # one operand built for each rank alone holds the same entries
     from sparseharness_tpu_torch.ops.sell2 import build_sell2
 
     coo = _heavy(tf)
@@ -220,7 +220,7 @@ def test_each_rank_plans_its_own_panels():
                                                coo.cols[sel], coo.vals[sel],
                                                (op.chunk_rows, coo.shape[1])),
                             TREG["min_plus"], split_calls=False, device="cpu")
-        assert alone.plan.n_runs == runs[rank]
+        assert alone.plan.n_entries == entries[rank]
 
 
 def test_rank_shard_is_made_once():
