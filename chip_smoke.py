@@ -55,7 +55,9 @@ result. Phases:
    in bounds);
 9. kernel timing at the blocked shape: each blocked kernel, its plain
    version, torch.mv on a CSR tensor of the same matrix, and the bound;
-10. the sell2 kernel against its plain version: all seven semirings and
+10. the sell2 kernel against its plain version (over the panels of a CPU
+   build, moved to the card; a card build keeps only the kernel's plan):
+   all seven semirings and
    value types on the layout cases of tests/test_sell2.py (a hub row split
    into pieces, virtual chunks, two slabs, three chunks, a power-law graph
    with bucket layouts sharing a row0, empty rows, one entry per row), bit
@@ -75,8 +77,8 @@ result. Phases:
    launches it recorded), its plain
    version, torch.mv on a CSR tensor of the same matrix, the bound, the
    bytes of the plan and of a call, the plan's bins (rows and entries
-   each) and pieces, and the seconds of each build (native, with its
-   seconds by stage);
+   each) and pieces, the seconds of each card build (native, with its
+   seconds by stage), and the panels' figures from a CPU build;
 13. the SpMM kernels against their plain versions: spmm_tiles for all
    seven semirings and strip types over bsr_ell and bsr_fused strips of
    random_coo(300, 257, 2500, seed=3) and random_coo(64, 4096, 6000,
@@ -135,10 +137,11 @@ result. Phases:
    and none gold-checked incorrect, the band's spmv and sssp rows and the
    sweep's sell row correct, and one spmv -k sell as a subprocess, correct;
 22. the native host path against the NumPy one at full size: the sell2
-   build of the ragged matrix both ways, every array identical, with both
+   build of the ragged matrix both ways on the CPU (which keeps the
+   panels beside the plan), every array identical, with both
    times, the native build's seconds by stage and its count of NumPy-body
-   slabs, then the sell2 kernel on the native operand against its plain
-   version and the gold; RCM of the shuffled 1 << 16 band both ways, the
+   slabs, then the sell2 kernel on the native operand, moved to the card,
+   against its plain version and the gold; RCM of the shuffled 1 << 16 band both ways, the
    same permutation; the parse of phase 21's 8.3 M-entry band.mtx both
    ways, the same indices and values within rtol 1e-6; each with both
    times (the kernel launches here are outside every counted run);
@@ -939,7 +942,9 @@ def sell2_vs_plain(torch, coo, cases, errs) -> int:
         op = sell2.build_sell2(m, sr, value_dtype=vd, device="cuda")
         x = random_x(torch, sr, m.shape[1], rng)
         got = sell2.sell2_dp_cuda(op, x, sr)
-        ref = sell2.dp_sell2_plain(op, x, sr, n_rows=m.shape[0])
+        ref_op = sell2.build_sell2(m, sr, value_dtype=vd, device="cpu").to("cuda")
+        ref = sell2.dp_sell2_plain(ref_op, x, sr, n_rows=m.shape[0])
+        del ref_op
         bound = None
         if name == "plus_times":
             again = sell2.sell2_dp_cuda(op, x, sr)
@@ -948,7 +953,7 @@ def sell2_vs_plain(torch, coo, cases, errs) -> int:
                 raise AssertionError(f"sell2 {name}/{vd}: two runs differ")
             if not torch.equal(got, ref):
                 aop = sell2.build_sell2(m.with_values(np.abs(m.vals)), sr, value_dtype=vd,
-                                        device="cuda")
+                                        device="cpu").to("cuda")
                 bound = sell2.dp_sell2_plain(aop, x.abs(), PLUS_TIMES, n_rows=m.shape[0])
                 del aop
         errs["sell2"] = max(errs["sell2"], check_kernel(
@@ -1024,7 +1029,7 @@ def ragged_fixpoints(torch, coo, out) -> None:
     n = coo.shape[0]
 
     def plain_spmv(m, x, sr):
-        op = build_operand(m, sr, "sell2")
+        op = build_operand(m, sr, "sell2", device="cpu").to("cuda")
         return fold_dp(dp_sell2_plain(op, x, sr, n_rows=n)[:n], None, sr, None, None)
 
     def run(app, *args, **kw):
@@ -1116,7 +1121,8 @@ def ragged_kernel_times(torch, coo) -> dict:
     (``stream_bytes``, ``plan_bytes``), and ``call_bytes`` is what a call
     moves by its design. The kernel's device ms comes from torch.profiler,
     the host's enqueue per call from ``time_windows``, and the bins from
-    the plan."""
+    the plan. The panels, which a card build does not keep, are a CPU
+    build's, moved to the card for the plain version."""
     from sparseharness_tpu_torch.harness import device_hbm_bandwidth
     from sparseharness_tpu_torch.ops import sell2
     from sparseharness_tpu_torch.semiring import PLUS_TIMES
@@ -1130,28 +1136,32 @@ def ragged_kernel_times(torch, coo) -> dict:
         op = sell2.build_sell2(coo, PLUS_TIMES, value_dtype=vd, device="cuda", record=rec)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
-        stream = [t for s in op.slabs if s is not None for t in s.values()]
+        panels = sell2.build_sell2(coo, PLUS_TIMES, value_dtype=vd, device="cpu").to(
+            "cuda").panels
+        stream = [t for s in panels.slabs if s is not None for t in s.values()]
         plan = op.plan
-        n_slots = sum(s["vals"].numel() for s in op.slabs if s is not None)
+        n_slots = sum(s["vals"].numel() for s in panels.slabs if s is not None)
         entry = bound(plan.n_entries * plan.vals.element_size() + x.numel() * 4
                       + coo.shape[0] * 4, 2 * plan.n_entries, bw)
         entry.update(
             build_seconds=build_s, build_native=rec.native, build_stages=rec.seconds,
-            numpy_body_slabs=rec.numpy_slabs, panels=sum(lay.panels for lay in op.layouts),
-            layouts=len(op.layouts), entries=plan.n_entries, slots=n_slots,
+            numpy_body_slabs=rec.numpy_slabs, panels=sum(lay.panels for lay in panels.layouts),
+            layouts=len(panels.layouts), entries=plan.n_entries, slots=n_slots,
             pieces=plan.n_pieces,
-            virtual_chunks=0 if op.virt_blocks is None else int(op.virt_blocks.shape[0]),
+            virtual_chunks=0 if panels.virt_blocks is None else int(
+                panels.virt_blocks.shape[0]),
             stream_bytes=tensor_bytes(*stream),
             plan_bytes=tensor_bytes(*(getattr(plan, f.name) for f in dataclasses.fields(plan)
                                       if isinstance(getattr(plan, f.name), torch.Tensor))),
             call_bytes=sell2_call_bytes(plan, x.numel() * 4), work=sell2_work(torch, plan),
             **time_windows(torch, lambda: sell2.sell2_dp_cuda(op, x, PLUS_TIMES)),
             plain_ms=time_ms(torch, lambda: sell2.dp_sell2_plain(
-                op, x, PLUS_TIMES, n_rows=coo.shape[0]), 3))
+                dataclasses.replace(op, panels=panels), x, PLUS_TIMES,
+                n_rows=coo.shape[0]), 3))
         entry["stages"] = stage_ms(torch, lambda: sell2.sell2_dp_cuda(op, x, PLUS_TIMES),
                                    r"sell2_\w+?_kernel")
         res[vd] = entry
-        del op
+        del op, panels, stream
     csr = csr_of(torch, coo)
     res["library_ms"] = time_ms(torch, lambda: torch.mv(csr, x), 20)
     del csr
@@ -1481,17 +1491,18 @@ def _with_native(flag: str, fn):
             os.environ["SPARSEHARNESS_TPU_NATIVE"] = before
 
 
-def same_sell2(torch, a, b) -> int:
-    """Fails unless two sell2 operands hold the same arrays, plan included;
-    returns the tensors compared."""
-    if a.layouts != b.layouts or (a.n_chunks, a.base_pad) != (b.n_chunks, b.base_pad):
+def same_sell2(torch, op_a, op_b) -> int:
+    """Fails unless two sell2 operands of CPU builds hold the same arrays,
+    panels and plan; returns the tensors compared."""
+    a, b = op_a.panels, op_b.panels
+    if a.layouts != b.layouts or (a.n_chunks, op_a.base_pad) != (b.n_chunks, op_b.base_pad):
         raise AssertionError("sell2 native vs NumPy: layouts differ")
     pairs = [(f"slab {i} {k}", sa[k], sb[k]) for i, (sa, sb) in
              enumerate(zip(a.slabs, b.slabs, strict=True)) if sa is not None for k in sa]
     pairs += [(f, getattr(a, f), getattr(b, f)) for f in ("piece_owner", "virt_blocks")]
-    pairs += [(f"plan.{f.name}", getattr(a.plan, f.name), getattr(b.plan, f.name))
-              for f in dataclasses.fields(a.plan)
-              if isinstance(getattr(a.plan, f.name), torch.Tensor)]
+    pairs += [(f"plan.{f.name}", getattr(op_a.plan, f.name), getattr(op_b.plan, f.name))
+              for f in dataclasses.fields(op_a.plan)
+              if isinstance(getattr(op_a.plan, f.name), torch.Tensor)]
     for label, x, y in pairs:
         if (x is None) != (y is None) or (x is not None and not (
                 x.dtype == y.dtype and torch.equal(_bits(torch, x), _bits(torch, y)))):
@@ -1510,10 +1521,11 @@ def _bits(torch, t):
 
 def native_host(torch, rcoo, band, band_path) -> dict:
     """The native host path against the NumPy one on the card's host, at
-    full size: the sell2 build of the ragged bench matrix both ways (every
-    array identical; both times, the native build's seconds by stage and
-    its count of NumPy-body slabs), then the sell2 kernel on the native
-    operand against its plain version and the gold; RCM of the shuffled
+    full size: the sell2 build of the ragged bench matrix both ways on the
+    CPU (every array identical, panels and plan; both times, the native
+    build's seconds by stage and its count of NumPy-body slabs), then the
+    sell2 kernel on the native operand, moved to the card, against its
+    plain version and the gold; RCM of the shuffled
     1 << 16 band both ways (the same permutation); the parse of the CLI's
     8.3 M-entry band.mtx both ways (the same indices, values within
     rtol 1e-6)."""
@@ -1526,13 +1538,10 @@ def native_host(torch, rcoo, band, band_path) -> dict:
 
     res = {"library": str(native_io.library_path().relative_to(
         os.path.dirname(os.path.abspath(__file__))))}
-    sync = torch.cuda.synchronize
 
     def build():
         rec = sell2.EncodeRecord()
-        op = sell2.build_sell2(rcoo, PLUS_TIMES, device="cuda", record=rec)
-        sync()
-        return op, rec
+        return sell2.build_sell2(rcoo, PLUS_TIMES, device="cpu", record=rec), rec
 
     (ref, ref_rec), numpy_s = _with_native("0", build)
     (op, rec), native_s = _with_native("1", build)
@@ -1544,6 +1553,7 @@ def native_host(torch, rcoo, band, band_path) -> dict:
                     "numpy_body_slabs": rec.numpy_slabs,
                     "tensors_identical": same_sell2(torch, op, ref)}
     del ref
+    op = op.to("cuda")
     x = random_x(torch, PLUS_TIMES, rcoo.shape[1], np.random.default_rng(41))
     got = sell2.sell2_dp_cuda(op, x, PLUS_TIMES)
     plain = sell2.dp_sell2_plain(op, x, PLUS_TIMES, n_rows=rcoo.shape[0])

@@ -99,11 +99,33 @@ def library_ms(torch, coo, x) -> float:
     return windows(torch, lambda: torch.mv(csr, x))["ms"]
 
 
+def plain(sell2, coo, x, sr):
+    """The plain dp on x's card, over the panels of a CPU build (a card
+    build keeps only the kernel's plan)."""
+    op = sell2.build_sell2(coo, sr, device="cpu").to(x.device)
+    return sell2.dp_sell2_plain(op, x, sr, n_rows=coo.shape[0])
+
+
+def remade(torch, sell2, op):
+    """The operand with its plan made again, under the bins set now, from
+    the plan's own entries (plus_times' 0̄ pads them)."""
+    plan = op.plan
+    rp, dest = plan.row_ptr.long(), plan.row_dest.long()
+    rows = torch.where(dest < plan.n_final, dest, op.base_pad + dest - plan.n_final)
+    rows = torch.repeat_interleave(rows, rp[1:] - rp[:-1]).to(torch.int32)
+    k, q = plan.n_entries, plan.n_pieces
+    owner = plan.owners[plan.piece_slot.long(), 0] if q else None
+    n_pad = -(-(op.base_pad + q) // 1024) * 1024 if q else plan.n_final
+    zero = torch.zeros(1, dtype=plan.store, device=plan.device)
+    return sell2.Sell2Operand(op.n_rows, op.base_pad, sell2.make_plan(
+        rows, plan.cols[:k], plan.vals[:k], zero, owner, op.base_pad, n_pad), None)
+
+
 def check(torch, sell2, coo, op, x, sr, bound) -> float:
     """Fails unless the kernel gives the plain version's values; returns
     the largest |kernel − plain|."""
     got = sell2.sell2_dp_cuda(op, x, sr)
-    ref = sell2.dp_sell2_plain(op, x, sr, n_rows=coo.shape[0])
+    ref = plain(sell2, coo, x, sr)
     torch.cuda.synchronize()
     if bound is None:
         if not torch.equal(got, ref):
@@ -159,9 +181,7 @@ def main() -> int:
         plan = op.plan
         plan_bytes = sum(t.numel() * t.element_size() for t in (
             plan.row_ptr, plan.row_dest, plan.cols, plan.vals, plan.owners, plan.piece_slot))
-        aop = sell2.build_sell2(coo.with_values(np.abs(coo.vals)), PLUS_TIMES, device="cuda")
-        bound = sell2.dp_sell2_plain(aop, x.abs(), PLUS_TIMES, n_rows=coo.shape[0])
-        del aop
+        bound = plain(sell2, coo.with_values(np.abs(coo.vals)), x.abs(), PLUS_TIMES)
         err = check(torch, sell2, coo, op, x, PLUS_TIMES, bound)
         mop = sell2.build_sell2(coo, MIN_PLUS, device="cuda")
         check(torch, sell2, coo, mop, x, MIN_PLUS, None)
@@ -185,8 +205,7 @@ def main() -> int:
         for bins in alternatives:
             for b in (bins, shipped):
                 sell2.BIN_MAX_LEN = b
-                alt = sell2.assemble(op.slabs, op.layouts, op.n_chunks, op.n_rows,
-                                     op.base_pad, op.piece_owner, op.virt_blocks, op.plan.device)
+                alt = remade(torch, sell2, op)
                 sell2.BIN_MAX_LEN = shipped
                 fn = lambda alt=alt: sell2.sell2_dp_cuda(alt, x, PLUS_TIMES)  # noqa: E731
                 turns.append({"max_len": list(b), "rows": list(alt.plan.bin_rows),

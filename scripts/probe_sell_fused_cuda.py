@@ -21,8 +21,7 @@ levels, and deep_hub_coo's 4,100-entry hub row of 4 levels), and on the
 band and the hub matrix joined in one operand, the hub's slab last and
 first: each dp checked against dp_sell_plain bit for bit, then the level
 launch alone, the dp's trace and its ms, in turns. Last, the sell2 bench
-operand's plan: built on the CPU and carried to the card, against the
-same plan made on the CPU.
+operand's plan entries, built on the CPU and on the card.
 The card's name and power limit come first, from nvidia-smi. Imports only
 the port and chip_smoke.py's timing helpers.
 """
@@ -124,7 +123,6 @@ def main() -> int:
         return 1
     from sparseharness_tpu_torch.formats import banded_coo, deep_hub_coo, power_law_coo
     from sparseharness_tpu_torch.ops import sell, sell2
-    from sparseharness_tpu_torch.ops.interop import sell2_operand_from_numpy
     from sparseharness_tpu_torch.semiring import PLUS_TIMES
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -203,15 +201,10 @@ def main() -> int:
     for a, dtype in ((rcoo.rows, np.int64), (rcoo.cols, np.int64), (rcoo.vals, np.float32)):
         digest.update(np.ascontiguousarray(a, dtype).tobytes())
     cpu_op = sell2.build_sell2(rcoo, sr, device="cpu")
-    arrays = [None if s is None else {k: v.numpy() for k, v in s.items()} for s in cpu_op.slabs]
-    owned = [None if t is None else t.numpy() for t in (cpu_op.piece_owner, cpu_op.virt_blocks)]
-    card_op = sell2_operand_from_numpy(arrays, cpu_op.layouts, cpu_op.n_chunks,
-                                       cpu_op.n_rows, cpu_op.base_pad, *owned, device="cuda")
     emit({"sell2_coo_nnz": rcoo.nnz, "sell2_coo_sha256_16": digest.hexdigest()[:16],
           "sell2_coo_row_sum": int(rcoo.rows.astype(np.int64).sum()),
           "sell2_coo_col_sum": int(rcoo.cols.astype(np.int64).sum()),
           "numpy": np.__version__, "cpu_plan_entries": cpu_op.plan.n_entries,
-          "card_plan_entries": card_op.plan.n_entries,
           "card_build_entries": sell2.build_sell2(rcoo, sr, device="cuda").plan.n_entries})
     return 0
 

@@ -5,9 +5,9 @@ its module layout and names, for one NVIDIA GPU:
 
 - sparse formats, seeded generators and MatrixMarket I/O (``formats``)
 - semirings as torch ops (``semiring``)
-- SpMV variants: plain-torch ``ell``, ``coo_seg``, ``dense`` and ``dia``,
-  and hand-written CUDA kernels for ``bsr_band``, the blocked variants,
-  ``sell2`` and ``sell``; semiring SpMM (``spmm``) with CUDA kernels for
+- SpMV variants: plain-torch ``ell``, ``coo_seg`` and ``dense``, and
+  hand-written CUDA kernels for ``bsr_band``, ``dia``, the blocked
+  variants, ``sell2`` and ``sell``; semiring SpMM (``spmm``) with CUDA kernels for
   band and strip operands (``ops``, sources in ``ops/csrc``, built with
   nvcc at first use)
 - RCM reordering (``formats.reorder``)

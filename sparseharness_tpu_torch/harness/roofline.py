@@ -30,7 +30,7 @@ def device_hbm_bandwidth(device_name: str) -> float:
 
 def _operand_tensors(operand):
     """Every tensor of an operand, walking into dataclasses, named tuples,
-    lists, tuples and dicts (sell2's per-slab dicts)."""
+    lists, tuples and dicts."""
     if isinstance(operand, torch.Tensor):
         return [operand]
     if dataclasses.is_dataclass(operand):
@@ -54,13 +54,12 @@ def variant_bytes(variant: str, operand, x_bytes: int, out_bytes: int) -> int:
     ``coo_seg`` one x element per nonzero plus the segment reduction's
     read-modify-write of dp per nonzero.
 
-    ``sell2``: every array of its slabs, ``piece_owner`` and
-    ``virt_blocks`` once, x once and the output once. The JAX package
-    charges three x passes, for the transposed x tiles that XLA writes
-    before its TPU kernel; the CUDA kernel reads x where it lies, so one
-    pass is the least traffic for the same work. The plan that the CUDA
-    kernel derives from the slabs is its own bookkeeping and not part of
-    that least traffic.
+    ``sell2``: every array of its kernel's plan once (each entry's column
+    and value, the row pointers and destinations, the owners' tables), x
+    once and the output once: what the CUDA kernel reads. The JAX package
+    charges its panel stream, 3× padded, and three x passes, for the
+    transposed x tiles that XLA writes before its TPU kernel; the CUDA
+    kernel reads neither.
 
     ``sell``: every array of its slabs (lanesel, vals, blocksel and each
     level's idx) once, x once and the output once. The level outputs are
@@ -79,7 +78,7 @@ def variant_bytes(variant: str, operand, x_bytes: int, out_bytes: int) -> int:
             raise ValueError("a bsr_band operand without a span table: make it with with_spans")
         return operand.spans.lanes * operand.strips.element_size() + x_bytes + out_bytes
     if variant == "sell2":
-        operand = [operand.slabs, operand.piece_owner, operand.virt_blocks]
+        operand = operand.plan
     elif variant == "sell":
         operand = operand.slabs
     tensors = _operand_tensors(operand)

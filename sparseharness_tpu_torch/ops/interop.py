@@ -20,7 +20,7 @@ from sparseharness_tpu_torch.ops.bsr_ell import BsrEllOperand
 from sparseharness_tpu_torch.ops.bsr_fused import BsrFusedOperand
 from sparseharness_tpu_torch.ops.dia import DiaOperand
 from sparseharness_tpu_torch.ops import sell
-from sparseharness_tpu_torch.ops.sell2 import Sell2Operand, _SlabLayout, assemble
+from sparseharness_tpu_torch.ops.sell2 import Sell2Operand, Sell2Panels, _SlabLayout
 from sparseharness_tpu_torch.ops.torch_ops import CooOperand, DenseOperand, EllOperand
 from sparseharness_tpu_torch.semiring import Semiring
 from sparseharness_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -97,20 +97,20 @@ def dia_operand_from_numpy(vals: np.ndarray, offsets, device: DeviceLike = None)
 def sell2_operand_from_numpy(slabs, layouts, n_chunks: int, n_rows: int, base_pad: int,
                              piece_owner=None, virt_blocks=None,
                              device: DeviceLike = None) -> Sell2Operand:
-    """The sell2 operand from its per-slab arrays (None for an empty slab,
-    else a mapping of chunk, wordA, wordB and vals) and layouts, as the JAX
-    package's Sell2Operand holds them. The kernel's plan is derived from
-    them on the device, as build_sell2 derives it."""
+    """The sell2 operand of the JAX package's panels: per-slab arrays (None
+    for an empty slab, else a mapping of chunk, wordA, wordB and vals) and
+    layouts, as its Sell2Operand holds them. It holds no kernel plan, so
+    only the plain version takes it."""
     device = resolve_device(device)
     dev_slabs = [None if s is None else {k: _tensor(s[k], device)
                                          for k in ("chunk", "wordA", "wordB", "vals")}
                  for s in slabs]
-    return assemble(
-        dev_slabs, tuple(_SlabLayout(*(int(v) if i < 4 else bool(v)
-                                       for i, v in enumerate(lay))) for lay in layouts),
-        n_chunks, n_rows, base_pad,
-        None if piece_owner is None else _tensor(piece_owner, device),
-        None if virt_blocks is None else _tensor(virt_blocks, device), device)
+    panels = Sell2Panels(
+        dev_slabs, tuple(_SlabLayout(*(int(v) if i < 4 else bool(v) for i, v in enumerate(lay)))
+                         for lay in layouts), int(n_chunks),
+        None if virt_blocks is None else _tensor(virt_blocks, device),
+        None if piece_owner is None else _tensor(piece_owner, device))
+    return Sell2Operand(int(n_rows), int(base_pad), None, panels)
 
 
 def sell_operand_from_numpy(slabs, layouts, xrows: int, n_rows: int,

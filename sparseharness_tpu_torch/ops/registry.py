@@ -89,7 +89,7 @@ def get_variant(name: str) -> KernelVariant:
 #: kernel when the window is affine, the diagonal kernel for stencils whose
 #: far diagonals overflow that window (behind dia's guard), the fused gather
 #: kernel when the structure blocks well and x fits the TPU's VMEM cap, the
-#: sell2 panel kernel for ragged and power-law rows (no cap on x), the
+#: sell2 row kernel for ragged and power-law rows (no cap on x), the
 #: pre-gathered strips when sell2's padding guard refuses, ELL as the
 #: universal fallback. The JAX package's chain is this one without dia: its
 #: dia has no kernel, and bsr_fused reads a stencil's mostly empty tiles
@@ -277,8 +277,9 @@ register_variant(KernelVariant(
     description="The JAX package's gen-5 design record: a phase-A stream "
                 "packed column-block-major, then gather-reduce levels; two "
                 "CUDA kernels, one fused launch for every row slab's phase A "
-                "and first level (no contrib stream) and one launch per "
-                "later level depth. Not in the auto chain, as in JAX",
+                "and first level (no contrib stream) and one level launch "
+                "that chains every later depth: two launches a call. Not "
+                "in the auto chain, as in JAX",
 ))
 
 register_variant(KernelVariant(
@@ -286,9 +287,9 @@ register_variant(KernelVariant(
     build=lambda coo, sr, g, device: sell2.build_sell2(
         coo, sr, value_dtype=g.value_dtype, device=device),
     dp=sell2.dp_sell2,
-    description="Ragged/power-law panels: one call over every (slab, "
-                "bucket) layout, a block per (panel, 32-lane group) with "
-                "runs reduced by warp shuffles in the TPU butterfly's "
-                "order, then rows and split-row pieces ⊕-reduced from the "
-                "plan; no cap on x",
+    description="Ragged/power-law rows: one row-major launch over a plan of "
+                "each dp row's entries in row order, 1-32 lanes a row by "
+                "its length, rows past SPLIT_T split into pieces that the "
+                "warp finishing an owner's last piece folds into it; the "
+                "JAX panel encode's guards decide admission; no cap on x",
 ))

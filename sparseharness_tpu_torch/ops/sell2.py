@@ -1,12 +1,22 @@
-"""The ``sell2`` variant: ragged and power-law rows in (128, 128) panels.
+"""The ``sell2`` variant: ragged and power-law rows, for any width of x.
 
-The operand is the JAX package's gen-6 panel stream, built by the same
-encoder: by default its native core (formats/native_io.py: the sort and
-fold, the heavy-row split and each slab's encode, two slabs at a time on a
-thread pool), else (``SPARSEHARNESS_TPU_NATIVE=0``) the NumPy one; both
-give the same arrays bit for bit. Each row slab of up to ``SLAB_ROWS`` rows holds panels of
-128 stream sublanes × 128 lanes, one layout per (slab, bucket). Per panel,
-three int32 words and one value per slot:
+:func:`build_sell2` runs the JAX package's gen-6 encoder: by default its
+native core (formats/native_io.py: the sort and fold, the heavy-row split
+and each slab's encode, two slabs at a time on a thread pool), else
+(``SPARSEHARNESS_TPU_NATIVE=0``) the NumPy one; both give the same arrays
+bit for bit, and the encode's padding guards refuse what JAX refuses. The
+operand holds what the dp on its own device reads. :func:`make_plan`
+makes the kernel's plan (:class:`Sell2Plan`) on the device from the
+entries the encoder packs: every dp row's (column, value) pairs in row
+order, rows longer than ``SPLIT_T`` striped over overflow pieces past
+``base_pad``. On a CUDA tensor :func:`dp_sell2` makes one launch of
+``csrc/sell2.cu`` over it. A CPU build also keeps the panels
+(:class:`Sell2Panels`), which :func:`dp_sell2_plain`, a literal torch
+replica of the TPU kernel's panel body, sweeps on any device.
+
+Each row slab of up to ``SLAB_ROWS`` rows holds panels of 128 stream
+sublanes × 128 lanes, one layout per (slab, bucket). Per panel, three
+int32 words and one value per slot:
 
 - ``chunk[p, 0:2]``: the two 16,384-column x chunks (or virtual chunks,
   ids ≥ ``n_chunks``) the panel's sublanes read;
@@ -24,16 +34,8 @@ Slot (s, l) computes contrib = x ⊗ val with x taken from block
 row-class l is the ⊕ of contrib over an aligned block of ``2^(cap−1)``
 slots, in the pairwise order of the TPU kernel's XOR butterfly, and each
 out row (row0 + o·128 + l) ⊕-accumulates the run its route names, layout
-by layout and panel by panel. Rows longer than ``SPLIT_T`` are striped
-over overflow pieces past ``base_pad`` and ⊕-folded back after the sweep.
-
-On a CUDA tensor :func:`dp_sell2` makes one launch of ``csrc/sell2.cu``
-that reads each dp row's entries in row order: a plan (:class:`Sell2Plan`)
-that :func:`make_plan` decodes once per operand, on the device, from the
-panels' real slots (pads dropped) holds every dp row's (column, value)
-pairs contiguously, rows grouped by length, with the launch's arguments
-made once beside it. On a CPU tensor it runs :func:`dp_sell2_plain`, a
-literal torch replica of the TPU kernel's panel body.
+by layout and panel by panel; the pieces are ⊕-folded into their owner
+rows after the sweep.
 """
 
 from __future__ import annotations
@@ -88,8 +90,6 @@ BIN_LANES = (32, 16, 8, 4, 2, 1)
 BIN_MAX_LEN = (64, 32, 16, 8, 4)
 #: threads of a block of the kernel (csrc/sell2.cu:kRowThreads)
 ROW_THREADS = 256
-#: panels decoded at once by make_plan, which bounds its temporaries
-PLAN_PANELS = 128
 
 
 class _SlabLayout(NamedTuple):
@@ -117,8 +117,7 @@ class _Launch(ctypes.Structure):
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Sell2Plan:
-    """The kernel's plan: every dp row's entries in row order, decoded on
-    the device from the slabs' real slots.
+    """The kernel's plan: every dp row's entries in row order.
 
     The kernel walks positions: position i is dp row ``row_dest[i]`` or,
     where that is n_final or more, overflow piece ``row_dest[i] − n_final``,
@@ -132,11 +131,8 @@ class Sell2Plan:
     ``owners[i, 0]`` folds pieces [owners[i, 1], owners[i, 2]) after its
     own row, piece k belongs to ``owners[piece_slot[k]]``, and
     ``owner_done`` counts each owner's pieces during a call and is 0
-    between calls, so calls on one operand run in stream order. ``slabs``
-    is the operand's list the plan was made from: the plan is remade with
-    its slabs."""
+    between calls, so calls on one operand run in stream order."""
 
-    slabs: list
     row_ptr: torch.Tensor      # int32 (n_positions + O + 1,)
     row_dest: torch.Tensor     # int32 (n_positions + O,)
     cols: torch.Tensor         # int32 (n_slots,)
@@ -148,32 +144,77 @@ class Sell2Plan:
     bin_entries: Tuple[int, ...]
     n_entries: int             # the binned rows' entries and the owners' own
     n_final: int               # output rows: base_pad with pieces, else every slab's rows
-    store: Optional[torch.dtype]  # value type of the panels (None: no panel)
-    device: torch.device
     launch: _Launch
 
     @property
     def n_pieces(self) -> int:
         return int(self.piece_slot.numel())
 
+    @property
+    def store(self) -> torch.dtype:
+        return self.vals.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.row_ptr.device
+
+    def to(self, device: DeviceLike) -> "Sell2Plan":
+        """The same plan on ``device``, with the launch's arguments made there."""
+        return _plan({f: getattr(self, f).to(device) for f in _LAUNCH_TENSORS},
+                     self.bin_rows, self.bin_entries, self.n_entries, self.n_final)
+
+    def __reduce__(self):
+        # the launch holds this process's pointers: a pickled plan remakes it
+        return _plan, ({f: getattr(self, f) for f in _LAUNCH_TENSORS}, self.bin_rows,
+                       self.bin_entries, self.n_entries, self.n_final)
+
+
+def _moved(t, device: DeviceLike):
+    """``t.to(device)``, or None for None."""
+    return None if t is None else t.to(device)
+
 
 @dataclasses.dataclass(frozen=True, eq=False)
-class Sell2Operand:
-    """The JAX package's Sell2Operand on a device, with the kernel's plan.
+class Sell2Panels:
+    """The JAX package's panel stream, which the plain version sweeps.
 
     ``slabs[i]`` is None for an empty slab, else a dict of ``chunk`` (P, 2)
     int32, ``wordA`` and ``wordB`` (P·128, 128) int32 and ``vals``
-    (P·128, 128) in the store type. ``virt_blocks`` (n_virt, 128) int32
-    holds the global 128-column blocks of each virtual chunk."""
+    (P·128, 128) in the store type, with ``layouts[i]``. ``virt_blocks``
+    (n_virt, 128) int32 holds the global 128-column blocks of each virtual
+    chunk, and ``piece_owner`` (Q,) int32 the owner row of each overflow
+    piece."""
 
     slabs: list
     layouts: Tuple[_SlabLayout, ...]
     n_chunks: int
+    virt_blocks: Optional[torch.Tensor]
+    piece_owner: Optional[torch.Tensor]
+
+    def to(self, device: DeviceLike) -> "Sell2Panels":
+        slabs = [None if s is None else {k: v.to(device) for k, v in s.items()}
+                 for s in self.slabs]
+        return dataclasses.replace(self, slabs=slabs,
+                                   virt_blocks=_moved(self.virt_blocks, device),
+                                   piece_owner=_moved(self.piece_owner, device))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Sell2Operand:
+    """What the sell2 dp on the operand's device reads: the kernel's
+    ``plan`` (None only where JAX's arrays were carried over by interop)
+    and, built on the CPU, the ``panels`` (None on a card). ``n_rows`` is
+    the matrix's, ``base_pad`` the dp row of the first overflow piece."""
+
     n_rows: int
     base_pad: int
-    piece_owner: Optional[torch.Tensor]
-    virt_blocks: Optional[torch.Tensor]
-    plan: Sell2Plan
+    plan: Optional[Sell2Plan]
+    panels: Optional[Sell2Panels]
+
+    def to(self, device: DeviceLike) -> "Sell2Operand":
+        """The same operand on ``device``: tensors moved, the launch made there."""
+        return dataclasses.replace(self, plan=_moved(self.plan, device),
+                                   panels=_moved(self.panels, device))
 
 
 def _next_pow2(k: np.ndarray) -> np.ndarray:
@@ -598,15 +639,19 @@ def _stored(vals: np.ndarray, store: torch.dtype) -> np.ndarray:
     return t.view(torch.int16).numpy()
 
 
+def _as_store(vals: np.ndarray, store: torch.dtype) -> torch.Tensor:
+    """Host values as a tensor of the store type, rounded as :func:`_stored`
+    rounds them; int16 values are the bf16 patterns of the native encode."""
+    v = torch.from_numpy(np.ascontiguousarray(vals))
+    return v.view(store) if v.dtype == torch.int16 else v.to(store)
+
+
 def _device_slab(chunk, wordA, wordB, vals, store: torch.dtype,
                  device: torch.device) -> dict:
-    v = torch.from_numpy(np.ascontiguousarray(vals))
-    # int16 values are the bf16 patterns of the native encode
-    v = v.view(store) if v.dtype == torch.int16 else v.to(store)
     return {"chunk": torch.from_numpy(np.ascontiguousarray(chunk)).to(device),
             "wordA": torch.from_numpy(np.ascontiguousarray(wordA)).to(device),
             "wordB": torch.from_numpy(np.ascontiguousarray(wordB)).to(device),
-            "vals": v.to(device)}
+            "vals": _as_store(vals, store).to(device)}
 
 
 @dataclasses.dataclass
@@ -636,7 +681,8 @@ def build_sell2(coo: COO, sr: Semiring, value_dtype: str = "float32",
                 device: DeviceLike = None,
                 record: Optional[EncodeRecord] = None) -> Sell2Operand:
     """Pack a COO matrix into the panel stream, as the JAX package's encoder
-    does, and upload it with the kernel's plan.
+    does, and make the kernel's plan on ``device`` from the entries packed.
+    The panels are kept only for a CPU operand: the kernel reads the plan.
 
     ``split_calls``: bucket each slab's panels by (butterfly depth group
     {0}, {1, 2}, {3+}; two align tiles), one layout per bucket, so that
@@ -650,6 +696,7 @@ def build_sell2(coo: COO, sr: Semiring, value_dtype: str = "float32",
     native = native_io.enabled()
     if native:
         native_io.load()  # builds the library on first use, outside the stage clocks
+    keep_panels = device.type == "cpu"
     rec = EncodeRecord() if record is None else record
     rec.native = native
     t = time.perf_counter_ns()
@@ -732,11 +779,11 @@ def build_sell2(coo: COO, sr: Semiring, value_dtype: str = "float32",
                 virt_rows.extend(vrows)
             total_slots += P * LANES * LANES
             _blowup_guard(P * LANES * LANES, e1 - e0, " in a slab")
-            if not split_calls:
+            if keep_panels and not split_calls:
                 slabs.append(_device_slab(chunk_of_panel, wordA, wordB, vals_arr, store,
                                           device))
                 layouts.append(_SlabLayout(r0, rows_slab, P, bf_depth, two_tiles, has_hi))
-            else:
+            elif keep_panels:
                 # panels come bucket-ordered: one layout per run of a bucket
                 bounds = np.flatnonzero(np.diff(_bucket_key(p_depth, p_two))) + 1
                 for p0, p1 in zip(np.r_[0, bounds], np.r_[bounds, P]):
@@ -755,146 +802,39 @@ def build_sell2(coo: COO, sr: Semiring, value_dtype: str = "float32",
             pool.shutdown(wait=False, cancel_futures=True)
 
     _blowup_guard(total_slots, max(s.nnz, 1))
+    if k_cols.size and int(k_cols.max()) >= 1 << 31:
+        raise ValueError("sell2: x is too long for the kernel's int32 columns")
     owner = (torch.from_numpy(piece_owner).to(device)
              if piece_owner is not None else None)
-    virt = torch.from_numpy(np.stack(virt_rows)).to(device) if virt_rows else None
-    op = assemble(slabs, tuple(layouts), n_chunks, n, base_pad, owner, virt, device)
+    # the entries go to the device as arguments alone, so that make_plan frees them
+    plan = make_plan(torch.from_numpy(k_rows.astype(np.int32)).to(device),
+                     torch.from_numpy(k_cols.astype(np.int32)).to(device),
+                     _as_store(k_vals, store).to(device),
+                     _as_store(zero.reshape(1), store).to(device), owner, base_pad, n_pad)
+    panels = None
+    if keep_panels:
+        virt = torch.from_numpy(np.stack(virt_rows)).to(device) if virt_rows else None
+        panels = Sell2Panels(slabs, tuple(layouts), n_chunks, virt, owner)
     # how often each of the kernel's paths engages
-    rec.mark("plan", t, bin_rows=list(op.plan.bin_rows),
-             bin_entries=list(op.plan.bin_entries), pieces=op.plan.n_pieces)
-    return op
+    rec.mark("plan", t, bin_rows=list(plan.bin_rows),
+             bin_entries=list(plan.bin_entries), pieces=plan.n_pieces)
+    return Sell2Operand(n, base_pad, plan, panels)
 
 
-def assemble(slabs, layouts, n_chunks: int, n_rows: int, base_pad: int,
-             piece_owner, virt_blocks, device: torch.device) -> Sell2Operand:
-    """A Sell2Operand from slabs on ``device``, with its plan made there."""
-    slabs = list(slabs)
-    return Sell2Operand(slabs=slabs, layouts=tuple(layouts),
-                        n_chunks=int(n_chunks), n_rows=int(n_rows),
-                        base_pad=int(base_pad), piece_owner=piece_owner,
-                        virt_blocks=virt_blocks,
-                        plan=make_plan(slabs, layouts, n_chunks, piece_owner, virt_blocks,
-                                       base_pad, device))
-
-
-def _row_starts(layouts) -> Tuple[dict, int]:
-    """{row0: first dp row of its slab}, and the dp length before the piece
-    fold: slabs concatenate in the order their row0 first appears."""
-    starts, n_out = {}, 0
-    for lay in layouts:
-        if lay.row0 not in starts:
-            starts[lay.row0] = n_out
-            n_out += lay.rows
-    return starts, n_out
-
-
-def _layout_runs(slab: dict, lay: _SlabLayout):
-    """(panel, row-class, out slot, aligned offset, level) of each run of a
-    layout, panel by panel. Out slot o of row-class l reads the offset its
-    route names (lane, and tile when the layout has two align tiles); that
-    offset holds a run when its capture level v satisfies 1 ≤ v ≤ depth + 1,
-    as the TPU kernel captures it, and any other offset gives 0̄, which
-    needs no run."""
-    P, d_out = lay.panels, lay.rows // LANES
-    wa = slab["wordA"].view(P, LANES, LANES)
-    route = slab["wordB"].view(P, LANES, LANES)[:, :, :min(d_out, LANES)]
-    lane, tile = (route >> 7) & 127, (route >> 14) & 1
-    if lay.has_hi and d_out > LANES:
-        hi = wa[:, :, :d_out - LANES]
-        lane = torch.cat([lane, (hi >> 22) & 127], dim=2)
-        tile = torch.cat([tile, (hi >> 29) & 1], dim=2)
-    off = lane + LANES * tile if lay.two_tiles else lane
-    word = torch.take_along_dim(wa, (off & 127).long(), dim=2)
-    cap = torch.where(off < LANES, word >> 14, word >> 18) & 15
-    p, l, o = torch.nonzero((cap >= 1) & (cap <= lay.depth + 1), as_tuple=True)
-    return p, l, o, off[p, l, o].long(), cap[p, l, o].long() - 1
-
-
-def _xbase(slab: dict, lay: _SlabLayout, n_chunks: int, virt_blocks) -> torch.Tensor:
-    """(P, 128, 2): the first x column of the block that sublane s binds for
-    way w, through its chunk (wordB's row 0, column s) or virtual chunk."""
-    bind = slab["wordB"].view(lay.panels, LANES, LANES)[:, 0, :].long()
-    chunk = slab["chunk"].long()
-    c = torch.where(((bind >> 30) & 1) == 1, chunk[:, 1:2], chunk[:, 0:1]).unsqueeze(2)
-    blk = torch.stack([(bind >> 22) & 127, (bind >> 15) & 127], dim=2)
-    base = c * CHUNK_COLS + blk * LANES
-    if virt_blocks is not None:
-        virt = virt_blocks.long()
-        vbase = virt[(c - n_chunks).clamp(0, virt.shape[0] - 1), blk] * LANES
-        base = torch.where(c < n_chunks, base, vbase)
-    return base
-
-
-def _panel_entries(slab: dict, lay: _SlabLayout, p0: int, p1: int, row_base: int,
-                   n_chunks: int, virt_blocks):
-    """(dp row, x column, value) of every real slot of panels [p0, p1) of a
-    layout: the slots each run aligns (:func:`_layout_runs`), less the pads,
-    which align the identity sublane 127."""
-    rows = slice(p0 * LANES, p1 * LANES)
-    sub = {"chunk": slab["chunk"][p0:p1], "wordA": slab["wordA"][rows],
-           "wordB": slab["wordB"][rows]}
-    part = lay._replace(panels=p1 - p0)
-    p, l, o, off, level = _layout_runs(sub, part)
-    w = 1 << level
-    dev = p.device
-    rep = torch.repeat_interleave(torch.arange(w.numel(), device=dev), w)
-    t = torch.arange(rep.numel(), device=dev) - (torch.cumsum(w, 0) - w)[rep]
-    j = (off & ~(w - 1))[rep] + t
-    del w, t, off, level
-    p, l = p[rep], l[rep]
-    word = sub["wordA"].view(-1, LANES, LANES)[p, l, j & 127].long()
-    a = torch.where(j < LANES, word & 127, (word >> 7) & 127)
-    del word, j
-    real = a != USABLE
-    p, l, a, rep = p[real], l[real], a[real], rep[real]
-    del real
-    b = sub["wordB"].view(-1, LANES, LANES)[p, a, l].long()
-    col = _xbase(sub, part, n_chunks, virt_blocks)[p, a, (b >> 29) & 1] + (b & 127)
-    del b
-    val = slab["vals"][rows].view(-1, LANES, LANES)[p, a, l]
-    row = row_base + o[rep] * LANES + l
-    return row, col, val
-
-
-def make_plan(slabs, layouts, n_chunks: int, piece_owner, virt_blocks, base_pad: int,
-              device: torch.device) -> Sell2Plan:
-    """The kernel's plan, decoded once in torch on ``device`` from the
-    panels' real slots, with the launch's arguments. Each temporary is
-    dropped once used: on the card they set the build's peak memory."""
-    starts, n_out = _row_starts(layouts)
-    rows, cols, vals, stores = [], [], [], set()
-    pad_val = None  # the slabs' own 0̄: a panel's identity sublane
-    for slab, lay in zip(slabs, layouts):
-        if not lay.panels:
-            continue
-        stores.add(slab["vals"].dtype)
-        pad_val = slab["vals"][USABLE, :1]
-        for p0 in range(0, lay.panels, PLAN_PANELS):
-            row, col, val = _panel_entries(slab, lay, p0, min(p0 + PLAN_PANELS, lay.panels),
-                                           starts[lay.row0], n_chunks, virt_blocks)
-            if col.numel() and int(col.max()) >= 1 << 31:
-                raise ValueError("sell2: x is too long for the kernel's int32 columns")
-            rows.append(row.to(torch.int32))
-            cols.append(col.to(torch.int32))
-            vals.append(val)
-            del row, col, val
-    if len(stores) > 1:
-        raise ValueError(f"mixed value types {stores}")
-    store = stores.pop() if stores else None
-
-    def cat(parts, dtype):
-        """The parts in one tensor; the list is emptied, freeing them."""
-        out = torch.cat(parts) if parts else torch.zeros(0, dtype=dtype, device=device)
-        parts.clear()
-        return out
-
-    row = cat(rows, torch.int32)
-    col = cat(cols, torch.int32)
-    val = cat(vals, store or torch.float32)
-    n_entries = row.numel()
+def make_plan(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+              zero: torch.Tensor, piece_owner: Optional[torch.Tensor], base_pad: int,
+              n_pad: int) -> Sell2Plan:
+    """The kernel's plan, made once in torch on the entries' device, with
+    the launch's arguments. The entries are each (dp row, x column) once:
+    ``rows`` int32 below ``n_pad``, row ``base_pad + k`` being overflow
+    piece k of owner row ``piece_owner[k]``; ``cols`` int32; ``vals`` in
+    the store type, whose 0̄ is ``zero`` (one element). Each temporary is dropped once used: on the card they set
+    the build's peak memory."""
+    device = rows.device
+    n_entries = rows.numel()
     if n_entries >= (1 << 31) - 4:
         raise ValueError("sell2: too many entries for the kernel's int32 row pointers")
-    counts = torch.bincount(row.long(), minlength=n_out)
+    counts = torch.bincount(rows.long(), minlength=n_pad)
 
     # the positions: pieces, then every output row that is no owner, in
     # bins; then the owners' own rows, which their folds reduce
@@ -915,8 +855,8 @@ def make_plan(slabs, layouts, n_chunks: int, piece_owner, virt_blocks, base_pad:
         dest = torch.cat([n_final + pieces, out_rows])
         del piece_ptr, kept, out_rows, pieces
     else:
-        n_final, n_pieces = n_out, 0
-        pos_row = dest = torch.arange(n_out, device=device)
+        n_final, n_pieces = n_pad, 0
+        pos_row = dest = torch.arange(n_pad, device=device)
         own = torch.zeros(0, dtype=torch.int64, device=device)
         owners = torch.zeros((0, 3), dtype=torch.int64, device=device)
         piece_slot = torch.zeros(0, dtype=torch.int64, device=device)
@@ -934,50 +874,56 @@ def make_plan(slabs, layouts, n_chunks: int, piece_owner, virt_blocks, base_pad:
     pos_row, dest = torch.cat([pos_row, own]), torch.cat([dest, own])
     plen = torch.cat([plen, counts[own]])
     del counts, own
-    rank = torch.full((n_out,), -1, dtype=torch.int64, device=device)
+    rank = torch.full((n_pad,), -1, dtype=torch.int64, device=device)
     rank[pos_row] = torch.arange(pos_row.numel(), device=device)
     del pos_row
 
     # the entries in position order, each row's by column
-    key = rank[row.long()]
-    del row, rank
+    key = rank[rows.long()]
+    del rows, rank
     if n_entries and int(key.min()) < 0:
         raise ValueError("sell2: an entry lies in a row that no position holds")
-    key.bitwise_left_shift_(31).bitwise_or_(col)
-    del col
+    key.bitwise_left_shift_(31).bitwise_or_(cols)
+    del cols
     key, idx = torch.sort(key)
-    val = val[idx]
+    vals = vals[idx]
     del idx
-    col = (key & 0x7FFFFFFF).to(torch.int32)
+    cols = (key & 0x7FFFFFFF).to(torch.int32)
     del key
     pad = -n_entries % 4
     if pad:
-        col = torch.cat([col, torch.zeros(pad, dtype=torch.int32, device=device)])
-        val = torch.cat([val, pad_val.expand(pad)])
+        cols = torch.cat([cols, torch.zeros(pad, dtype=torch.int32, device=device)])
+        vals = torch.cat([vals, zero.expand(pad)])
     row_ptr = torch.zeros(plen.numel() + 1, dtype=torch.int64, device=device)
     torch.cumsum(plen, 0, out=row_ptr[1:])
     del plen
-    bin_pos, bin_block = [0], [0]
-    for k, lanes in enumerate(BIN_LANES):
-        bin_pos.append(bin_pos[-1] + bin_rows[k])
-        bin_block.append(bin_block[-1] + -(-bin_rows[k] * lanes // ROW_THREADS))
     tensors = dict(
         row_ptr=row_ptr.to(torch.int32),
         row_dest=dest.to(torch.int32),
-        cols=col,
-        vals=val,
+        cols=cols,
+        vals=vals,
         owners=owners.to(torch.int32).contiguous(),
         piece_slot=piece_slot.to(torch.int32),
         owner_done=torch.zeros(owners.shape[0], dtype=torch.int32, device=device),
     )
+    return _plan(tensors, bin_rows, bin_entries, n_entries, n_final)
+
+
+def _plan(tensors: Dict[str, torch.Tensor], bin_rows, bin_entries, n_entries: int,
+          n_final: int) -> Sell2Plan:
+    """The plan of ``tensors`` (``_LAUNCH_TENSORS``, on one device), with the
+    launch's arguments made for them."""
+    bin_pos, bin_block = [0], [0]
+    for k, lanes in enumerate(BIN_LANES):
+        bin_pos.append(bin_pos[-1] + bin_rows[k])
+        bin_block.append(bin_block[-1] + -(-bin_rows[k] * lanes // ROW_THREADS))
     device = tensors["row_ptr"].device
     n_bins = ctypes.c_int * (_N_BINS + 1)
     launch = _Launch(*(tensors[f].data_ptr() for f in _LAUNCH_TENSORS), n_bins(*bin_pos),
-                     n_bins(*bin_block), n_final, n_pieces,
-                     -1 if store is None else _build.STRIP_CODES[store], device.index or 0)
-    return Sell2Plan(slabs=slabs, bin_rows=tuple(bin_rows), bin_entries=tuple(bin_entries),
-                     n_entries=n_entries, n_final=n_final, store=store, device=device,
-                     launch=launch, **tensors)
+                     n_bins(*bin_block), n_final, int(tensors["piece_slot"].numel()),
+                     _build.STRIP_CODES[tensors["vals"].dtype], device.index or 0)
+    return Sell2Plan(bin_rows=tuple(bin_rows), bin_entries=tuple(bin_entries),
+                     n_entries=n_entries, n_final=n_final, launch=launch, **tensors)
 
 
 def dp_sell2(op: Sell2Operand, x: torch.Tensor, sr: Semiring, *,
@@ -987,23 +933,23 @@ def dp_sell2(op: Sell2Operand, x: torch.Tensor, sr: Semiring, *,
     carrier type (int32 for or_and), as the JAX package's dp_sell2. On a
     CUDA tensor this launches the kernel; on a CPU tensor it runs the plain
     version."""
-    if op.plan.row_ptr.device.type == "cpu":
+    if x.device.type == "cpu":
         return dp_sell2_plain(op, x, sr, n_rows=n_rows)
     return sell2_dp_cuda(op, x, sr)
 
 
-def _x_tiles(op: Sell2Operand, x: torch.Tensor, sr: Semiring) -> torch.Tensor:
+def _x_tiles(panels: Sell2Panels, x: torch.Tensor, sr: Semiring) -> torch.Tensor:
     """x padded with 0̄ to whole chunks in the carrier type, as
     (chunks + virtual chunks, 128, 128) tiles with tile[c, l, b] = x of
     block b, lane l."""
     carrier = _carrier(sr)[0]
-    c_pad = op.n_chunks * CHUNK_COLS
+    c_pad = panels.n_chunks * CHUNK_COLS
     x_pad = torch.full((c_pad,), sr.zero, dtype=sr.dtype, device=x.device)
     x_pad[: x.shape[0]] = x.to(sr.dtype)
     x_pad = x_pad.to(carrier)
-    tiles = x_pad.view(op.n_chunks, LANES, LANES).transpose(1, 2)
-    if op.virt_blocks is not None:
-        vt = x_pad.view(-1, LANES)[op.virt_blocks.long()]     # (n_v, blocks, lanes)
+    tiles = x_pad.view(panels.n_chunks, LANES, LANES).transpose(1, 2)
+    if panels.virt_blocks is not None:
+        vt = x_pad.view(-1, LANES)[panels.virt_blocks.long()]     # (n_v, blocks, lanes)
         tiles = torch.cat([tiles, vt.transpose(1, 2)])
     return tiles
 
@@ -1072,41 +1018,48 @@ def _panel_sweep(slab: dict, lay: _SlabLayout, xt: torch.Tensor,
 
 def dp_sell2_plain(op: Sell2Operand, x: torch.Tensor, sr: Semiring, *,
                    n_rows: int) -> torch.Tensor:
-    """The plain torch version of :func:`dp_sell2`, on any device: x staged
-    as per-chunk tiles, each layout's panels swept as the TPU kernel does,
-    layouts sharing a row0 ⊕-combined in order, then the piece fold."""
+    """The plain torch version of :func:`dp_sell2`, over the operand's
+    panels on whatever device they are: x staged as per-chunk tiles, each
+    layout's panels swept as the TPU kernel does, layouts sharing a row0
+    ⊕-combined in order, then the piece fold. A card build keeps no panels:
+    build the operand on the CPU (and move it with ``to``) for this."""
+    panels = op.panels
+    if panels is None:
+        raise ValueError("the sell2 operand holds no panels, as a card build keeps only the "
+                         "kernel's plan: build it on the CPU for the plain version")
     carrier, add, _, _, zero, _ = _carrier(sr)
-    xt = _x_tiles(op, x, sr)
+    xt = _x_tiles(panels, x, sr)
     acc: dict = {}
-    for slab, lay in zip(op.slabs, op.layouts):
+    for slab, lay in zip(panels.slabs, panels.layouts):
         if lay.panels == 0:
             acc.setdefault(lay.row0, None)
             continue
         tile = _panel_sweep(slab, lay, xt, sr).reshape(-1)
         prev = acc.get(lay.row0)
         acc[lay.row0] = tile if prev is None else add(prev, tile)
-    rows = {lay.row0: lay.rows for lay in op.layouts}
+    rows = {lay.row0: lay.rows for lay in panels.layouts}
     outs = [t if t is not None else torch.full((rows[r0],), zero, dtype=carrier,
                                                device=x.device)
             for r0, t in acc.items()]
     dp = torch.cat(outs) if len(outs) > 1 else outs[0]
-    return _fold_pieces_plain(op, dp, sr)
+    return _fold_pieces_plain(panels.piece_owner, op.base_pad, dp, sr)
 
 
-def _fold_pieces_plain(op: Sell2Operand, dp: torch.Tensor, sr: Semiring) -> torch.Tensor:
+def _fold_pieces_plain(piece_owner: Optional[torch.Tensor], base_pad: int, dp: torch.Tensor,
+                       sr: Semiring) -> torch.Tensor:
     """dp[:base_pad] ⊕ (each owner's pieces reduced from the reduction's
     identity, one piece after another, as the kernel does)."""
-    if op.piece_owner is None:
+    if piece_owner is None:
         return dp
     add = _carrier(sr)[1]
     ident = _SEGMENT_IDENTITY[_SEGMENT_REDUCE[add], dp.dtype]
-    counts = torch.bincount(op.piece_owner.long(), minlength=op.base_pad)
-    ptr = torch.zeros(op.base_pad + 1, dtype=torch.int64, device=dp.device)
+    counts = torch.bincount(piece_owner.long(), minlength=base_pad)
+    ptr = torch.zeros(base_pad + 1, dtype=torch.int64, device=dp.device)
     torch.cumsum(counts, 0, out=ptr[1:])
     owners = torch.nonzero(counts).flatten()
-    seg = torch.full((op.base_pad,), ident, dtype=dp.dtype, device=dp.device)
-    n_pieces = int(op.piece_owner.shape[0])
-    pieces = dp[op.base_pad:op.base_pad + n_pieces]
+    seg = torch.full((base_pad,), ident, dtype=dp.dtype, device=dp.device)
+    n_pieces = int(piece_owner.shape[0])
+    pieces = dp[base_pad:base_pad + n_pieces]
     acc = torch.full((owners.numel(),), ident, dtype=dp.dtype, device=dp.device)
     first = ptr[owners]
     for k in range(int(counts.max())):
@@ -1114,7 +1067,7 @@ def _fold_pieces_plain(op: Sell2Operand, dp: torch.Tensor, sr: Semiring) -> torc
         val = pieces[torch.where(has, first + k, first)]
         acc = torch.where(has, add(acc, val), acc)
     seg[owners] = acc
-    return add(dp[:op.base_pad], seg)
+    return add(dp[:base_pad], seg)
 
 
 #: the value types a carrier's kernel takes
@@ -1128,16 +1081,14 @@ def sell2_dp_cuda(op: Sell2Operand, x: torch.Tensor, sr: Semiring) -> torch.Tens
     """The sell2 dp in one launch of the kernel library over the operand's
     plan, with the arguments made once beside it: the carrier-typed dp of
     :func:`dp_sell2`, pieces folded.
-    Raises on a plan that does not belong to the operand's slabs, on what
-    the kernel does not take and on a refused launch."""
+    Raises on an operand without a plan on x's CUDA device, on what the
+    kernel does not take and on a refused launch."""
     plan = op.plan
-    if plan.slabs is not op.slabs:
-        raise ValueError("the plan does not belong to these slabs: remake it with assemble")
+    if plan is None or plan.device.type != "cuda" or x.device != plan.device:
+        raise ValueError("sell2_dp_cuda needs the operand's plan and x on one CUDA device")
     dev = plan.device
-    if dev.type != "cuda" or x.device != dev:
-        raise ValueError("sell2_dp_cuda needs the operand and x on one CUDA device")
     carrier = _carrier(sr)[0]
-    if plan.store is not None and plan.store not in _TAKES[carrier]:
+    if plan.store not in _TAKES[carrier]:
         raise ValueError(f"{sr.name} takes values of {_TAKES[carrier]}, got {plan.store}")
     if x.dtype != sr.dtype or sr.dtype != carrier:
         x = x.to(sr.dtype).to(carrier)

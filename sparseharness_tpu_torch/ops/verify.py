@@ -84,13 +84,13 @@ def _skip(reason: str) -> Contract:
 
 _COLS = _index(lambda c: (0, c.c_hi))
 _ROWS = _index(lambda c: (0, c.r_hi))
-_SELL2_VIEW = _skip("the operand's own slabs, the same tensors")
 _SELL_VIEW = _skip("a view of the flat array of the same name, checked there")
 
 
 def _sell2_chunks(c: _Ctx) -> Tuple[int, int]:
-    n_virt = 0 if c.op.virt_blocks is None else c.op.virt_blocks.shape[0]
-    return 0, c.op.n_chunks + n_virt
+    panels = c.op.panels
+    n_virt = 0 if panels.virt_blocks is None else panels.virt_blocks.shape[0]
+    return 0, panels.n_chunks + n_virt
 
 
 def _sell_t_src(c: _Ctx) -> Tuple[int, int]:
@@ -132,15 +132,14 @@ CONTRACTS: Dict[str, Dict[str, Contract]] = {
             "a view of the flat idx, checked there"),
     },
     "Sell2Operand": {
-        "slabs.[].chunk": _index(_sell2_chunks),
-        "slabs.[].wordA": _skip("bit-packed align, capture and route fields with no "
-                                "compact value set; held end to end by the gold checks"),
-        "slabs.[].wordB": _skip("bit-packed lane, block and route fields with no "
-                                "compact value set; held end to end by the gold checks"),
-        "slabs.[].vals": VALUE,
-        "piece_owner": _index(lambda c: (0, c.n_rows)),
-        "virt_blocks": _index(lambda c: (0, c.op.n_chunks * 128)),
-        "plan.slabs.[].*": _SELL2_VIEW,
+        "panels.slabs.[].chunk": _index(_sell2_chunks),
+        "panels.slabs.[].wordA": _skip("bit-packed align, capture and route fields with no "
+                                       "compact value set; held end to end by the gold checks"),
+        "panels.slabs.[].wordB": _skip("bit-packed lane, block and route fields with no "
+                                       "compact value set; held end to end by the gold checks"),
+        "panels.slabs.[].vals": VALUE,
+        "panels.piece_owner": _index(lambda c: (0, c.n_rows)),
+        "panels.virt_blocks": _index(lambda c: (0, c.op.panels.n_chunks * 128)),
         "plan.row_ptr": _index(lambda c: (0, c.op.plan.n_entries + 1)),
         "plan.row_dest": _index(lambda c: (0, c.op.plan.n_final + c.op.plan.n_pieces)),
         "plan.cols": _COLS,

@@ -6,7 +6,7 @@ process a rank and every function here runs on every rank of a world
 
 - rows are block-partitioned over the ranks: each owns a contiguous row
   block of a padded ELL operand (the gather and halo modes here), of a
-  window-local band operand (``sharded_band``), of sell2 panels
+  window-local band operand (``sharded_band``), of a sell2 operand
   (``sharded_sell``) or of tile strips (``sharded_spmm``);
 - x lives row-sharded between steps and is all-gathered at the top of
   each step (gather mode), or the ring exchanges the halo edges (halo and
@@ -395,7 +395,7 @@ def _build_sharded_auto(coo: COO, sr: Semiring, n_shards: int, mode: str = "auto
     """(operand, solver): the best mode the structure permits.
 
     "auto" prefers the band operand (the band kernel, O(halo) exchange and
-    the overlap), then sell2 panels (the sell2 kernel over an all-gathered
+    the overlap), then sell2 (the sell2 kernel over an all-gathered
     x: the power-law and scattered path), then the halo ELL (O(halo)
     exchange, plain torch gather), then the all-gather ELL (any
     structure). "band", "sell" and "halo" require theirs (NotImplementedError,

@@ -10,13 +10,13 @@ The exchange is a dense all-gather (O(n) a step): scattered columns
 reference the whole vector, so there is no halo window. The frontier path
 (``parallel/frontier.py``) is the sparse-step alternative.
 
-The arrays are the JAX package's: each rank's layouts are unioned over the
-ranks (most panels per slab index, the deepest butterfly, the OR of the
-tile flags) and its streams padded with identity panels, whose index words
-route every output row to a lane that no run captures, so padding adds
-nothing. Each rank then makes the kernel's plan of its own shard
-(``ops/sell2.py:make_plan``, through ``assemble``), in which the identity
-panels hold no entry.
+Each rank runs the kernel's plan of its own block, as ``build_sell2``
+made it. On the CPU ``build_sharded_sell`` also stacks the ranks' panels
+as the JAX package does, for the plain version: each rank's layouts are
+unioned over the ranks (most panels per slab index, the deepest
+butterfly, the OR of the tile flags) and its streams padded with
+identity panels, whose index words route every output row to a lane
+that no run captures, so padding adds nothing.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ import torch
 
 from sparseharness_tpu_torch.formats.sparse import COO, round_up
 from sparseharness_tpu_torch.ops.sell2 import (
-    LANES, Sell2Operand, _SlabLayout, assemble, build_sell2, dp_sell2,
+    LANES, Sell2Operand, Sell2Panels, _SlabLayout, build_sell2, dp_sell2,
 )
 from sparseharness_tpu_torch.parallel import comm, fixcore
 from sparseharness_tpu_torch.parallel.fixcore import ShardedFixpointResult
@@ -41,24 +41,23 @@ from sparseharness_tpu_torch.utils.device import DeviceLike, resolve_device
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class ShardedSellOperand:
-    """Every rank's sell2 panel streams, leading dim = rank.
+    """Every rank's sell2 operand, and on the CPU their panels stacked.
 
-    ``slabs``: per slab index None (no rank has panels there) or a dict of
+    ``ranks[d]``: rank d's block of ``chunk_rows`` rows as build_sell2
+    made it. ``panels``: on the CPU, the ranks' panels with leading dim =
+    rank: per slab index None (no rank has panels there) or a dict of
     ``chunk`` (size, P, 2), ``wordA``, ``wordB`` and ``vals`` (size, P·128,
-    128); ``layouts``: the unioned layouts, the same for every rank;
-    ``piece_owner`` (size, Q) and ``virt_blocks`` (size, n_v, 128), padded
-    with 0 (a padded piece holds 0̄, a padded virtual chunk is never read),
-    or None."""
+    128); the unioned layouts, the same for every rank; ``piece_owner``
+    (size, Q) and ``virt_blocks`` (size, n_v, 128), padded with 0 (a padded
+    piece holds 0̄, a padded virtual chunk is never read), or None. None on
+    a card, whose operands hold no panels."""
 
-    slabs: list
-    piece_owner: Optional[torch.Tensor]
-    layouts: Tuple[_SlabLayout, ...]
-    n_chunks: int
+    ranks: Tuple[Sell2Operand, ...]
+    panels: Optional[Sell2Panels]
     n_cols: int
     chunk_rows: int
     base_pad: int
     n_rows: int
-    virt_blocks: Optional[torch.Tensor] = None
 
 
 def _identity_words(two_tiles: bool):
@@ -78,14 +77,13 @@ def build_sharded_sell(
     *,
     device: DeviceLike = None,
 ) -> Tuple[ShardedSellOperand, int]:
-    """Row-block partition, each rank's block packed by build_sell2, the
-    layouts unioned and the streams padded with identity panels, on
-    ``device``. Raises NotImplementedError when any block's packing passes
-    the sell2 padding guard; callers fall back to the ELL modes. Returns
-    (operand, chunk)."""
+    """Row-block partition, each rank's block packed by build_sell2 on
+    ``device``; where the blocks keep their panels (on the CPU), the
+    layouts unioned and the streams padded with identity panels. Raises
+    NotImplementedError when any block's packing passes the sell2 padding
+    guard; callers fall back to the ELL modes. Returns (operand, chunk)."""
     device = resolve_device(device)
     n, c = coo.shape
-    _, _, _, _, zero, as_int = _carrier(sr)
     chunk = round_up(max(-(-n // n_shards), 1), 1024)
     shard_idx = (coo.rows // chunk).astype(np.int64)
     ops: List[Sell2Operand] = []
@@ -96,11 +94,20 @@ def build_sharded_sell(
         # one layout per slab index: the union below matches slabs by position
         ops.append(build_sell2(sub, sr, value_dtype=value_dtype, split_calls=False,
                                device=device))
+    panels = None
+    if ops[0].panels is not None:
+        panels = _stacked_panels([op.panels for op in ops], _carrier(sr)[4], device)
+    return ShardedSellOperand(ranks=tuple(ops), panels=panels, n_cols=c, chunk_rows=chunk,
+                              base_pad=ops[0].base_pad, n_rows=n), chunk
 
-    n_slabs = max(len(op.layouts) for op in ops)
+
+def _stacked_panels(ranks: List[Sell2Panels], zero, device: torch.device) -> Sell2Panels:
+    """The ranks' panels stacked as the JAX package stacks them."""
+    n_shards = len(ranks)
+    n_slabs = max(len(p.layouts) for p in ranks)
     layouts: List[_SlabLayout] = []
     for s in range(n_slabs):
-        ls = [op.layouts[s] for op in ops if s < len(op.layouts)]
+        ls = [p.layouts[s] for p in ranks if s < len(p.layouts)]
         rows = max(lay.rows for lay in ls)
         layouts.append(_SlabLayout(
             s * (2 * LANES * LANES), rows, max(lay.panels for lay in ls),
@@ -114,8 +121,8 @@ def build_sharded_sell(
             continue
         wa_id, wb_id = _identity_words(lay.two_tiles)
         p_s = lay.panels
-        store = next(op.slabs[s]["vals"].dtype for op in ops
-                     if s < len(op.layouts) and op.layouts[s].panels)
+        store = next(p.slabs[s]["vals"].dtype for p in ranks
+                     if s < len(p.layouts) and p.layouts[s].panels)
         out = {"chunk": torch.zeros((n_shards, p_s, 2), dtype=torch.int32, device=device),
                "wordA": torch.full((n_shards, p_s * LANES, LANES), wa_id, dtype=torch.int32,
                                    device=device),
@@ -123,13 +130,13 @@ def build_sharded_sell(
                                    device=device),
                "vals": torch.full((n_shards, p_s * LANES, LANES), zero, dtype=store,
                                   device=device)}
-        for d, op in enumerate(ops):
-            if s >= len(op.layouts) or op.layouts[s].panels == 0:
+        for d, p in enumerate(ranks):
+            if s >= len(p.layouts) or p.layouts[s].panels == 0:
                 continue
-            p_d = op.layouts[s].panels
-            out["chunk"][d, :p_d] = op.slabs[s]["chunk"]
+            p_d = p.layouts[s].panels
+            out["chunk"][d, :p_d] = p.slabs[s]["chunk"]
             for k in ("wordA", "wordB", "vals"):
-                out[k][d, :p_d * LANES] = op.slabs[s][k]
+                out[k][d, :p_d * LANES] = p.slabs[s][k]
         slabs.append(out)
 
     def stacked(arrays, width):
@@ -143,27 +150,28 @@ def build_sharded_sell(
                 t[d, :a.shape[0]] = a
         return t
 
-    return ShardedSellOperand(
-        slabs=slabs, piece_owner=stacked([op.piece_owner for op in ops], ()),
-        layouts=tuple(layouts), n_chunks=ops[0].n_chunks, n_cols=c, chunk_rows=chunk,
-        base_pad=ops[0].base_pad, n_rows=n,
-        virt_blocks=stacked([op.virt_blocks for op in ops], (LANES,))), chunk
+    return Sell2Panels(slabs, tuple(layouts), ranks[0].n_chunks,
+                       stacked([p.virt_blocks for p in ranks], (LANES,)),
+                       stacked([p.piece_owner for p in ranks], ()))
 
 
 def place_sell_shard(mesh: Mesh, op: ShardedSellOperand) -> Sell2Operand:
-    """This rank's panels as a Sell2Operand on its device, with the
-    kernel's plan made for them."""
-    if op.slabs and any(s is not None for s in op.slabs):
-        shards = next(s for s in op.slabs if s is not None)["chunk"].shape[0]
-        if shards != mesh.size:
-            raise ValueError(f"operand of {shards} shards on a mesh of {mesh.size} ranks")
+    """This rank's operand on its device: its block's plan and, where the
+    panels were kept, its slice of the stacked panels (identity padding
+    included), which the plain version sweeps."""
+    if len(op.ranks) != mesh.size:
+        raise ValueError(f"operand of {len(op.ranks)} shards on a mesh of {mesh.size} ranks")
+    local = op.ranks[mesh.rank]
+    if op.panels is not None:
+        p = op.panels
 
-    def mine(t):
-        return None if t is None else t[mesh.rank].to(mesh.device)
+        def mine(t):
+            return None if t is None else t[mesh.rank]
 
-    slabs = [None if s is None else {k: mine(v) for k, v in s.items()} for s in op.slabs]
-    return assemble(slabs, op.layouts, op.n_chunks, op.chunk_rows, op.base_pad,
-                    mine(op.piece_owner), mine(op.virt_blocks), mesh.device)
+        local = dataclasses.replace(local, panels=Sell2Panels(
+            [None if s is None else {k: mine(v) for k, v in s.items()} for s in p.slabs],
+            p.layouts, p.n_chunks, mine(p.virt_blocks), mine(p.piece_owner)))
+    return local.to(mesh.device)
 
 
 def sell_shard(mesh: Mesh, op: ShardedSellOperand) -> Sell2Operand:

@@ -4,9 +4,10 @@ and bsr_ell, the gen-1 tile kernel of bsr_pallas, the sell2 row-major kernel,
 the two SpMM kernels (spmm_band, also on X with ±inf and NaN; spmm_tiles
 at m up to 256 through both maps) and the sell fused depth-0
 and level kernels (the level launch on both of its paths), against their
-plain versions on the same CUDA tensors,
-spmv, spmm and multi_sssp launching each kernel, the sell2 plan made on
-the card against the one made on the CPU, and the program's fixpoint
+plain versions on the same CUDA tensors (sell2's plain version sweeps
+the panels that only a CPU build keeps, moved to the card),
+spmv, spmm and multi_sssp launching each kernel, the sell2 plan of a card
+build against a CPU build's, and the program's fixpoint
 spans mapped onto a device trace against the launches they hold. They
 skip without a card; run them on one with
 
@@ -29,6 +30,7 @@ from sparseharness_tpu_torch.ops import (
     LAUNCHES, bsr, bsr_band, bsr_ell, bsr_fused, sell, sell2, spmm, spmm_tiles, spmv,
 )
 from sparseharness_tpu_torch.semiring import REGISTRY, PLUS_TIMES, get_semiring
+from sparseharness_tpu_torch.semiring.core import _carrier
 
 # (semiring, strip dtype): bf16 strips only for the float semirings
 CASES = [(n, vd) for n in sorted(REGISTRY) for vd in ("float32", "bfloat16")
@@ -246,19 +248,23 @@ def test_sell2_kernel_matches_plain(name, value_dtype, cuda):
         got = sell2.sell2_dp_cuda(op, x, sr)
         again = sell2.sell2_dp_cuda(op, x, sr)
         torch.cuda.synchronize()
-        ref = sell2.dp_sell2_plain(op, x, sr, n_rows=coo.shape[0])
+        ref = _sell2_plain(coo, sr, value_dtype, x)
         assert got.dtype == ref.dtype
-        _assert_kernel_matches(name, got, ref, _sell2_bound(coo, sr, value_dtype, x, cuda))
+        _assert_kernel_matches(name, got, ref, _sell2_bound(coo, sr, value_dtype, x))
         assert torch.equal(got.view(torch.int32), again.view(torch.int32))
 
 
-def _sell2_bound(coo, sr, value_dtype, x, cuda):
+def _sell2_plain(coo, sr, value_dtype, x):
+    """The plain dp on x's card, over the panels of a CPU build."""
+    op = sell2.build_sell2(coo, sr, value_dtype=value_dtype, device="cpu").to(x.device)
+    return sell2.dp_sell2_plain(op, x, sr, n_rows=coo.shape[0])
+
+
+def _sell2_bound(coo, sr, value_dtype, x):
     """Σ|a·x| of each dp row, for plus_times' tolerance (None otherwise)."""
     if sr.name != "plus_times":
         return None
-    aop = sell2.build_sell2(coo.with_values(np.abs(coo.vals)), sr, value_dtype=value_dtype,
-                            device=cuda)
-    return sell2.dp_sell2_plain(aop, x.abs(), sr, n_rows=coo.shape[0])
+    return _sell2_plain(coo.with_values(np.abs(coo.vals)), sr, value_dtype, x.abs())
 
 
 @pytest.fixture(scope="module")
@@ -287,18 +293,20 @@ def test_sell2_kernel_matches_plain_split_items(name, value_dtype, heavy_power_l
     got = sell2.sell2_dp_cuda(op, x, sr)
     again = sell2.sell2_dp_cuda(op, x, sr)
     torch.cuda.synchronize()
-    ref = sell2.dp_sell2_plain(op, x, sr, n_rows=coo.shape[0])
+    ref = _sell2_plain(coo, sr, value_dtype, x)
     assert got.dtype == ref.dtype
-    _assert_kernel_matches(name, got, ref, _sell2_bound(coo, sr, value_dtype, x, cuda))
+    _assert_kernel_matches(name, got, ref, _sell2_bound(coo, sr, value_dtype, x))
     assert torch.equal(got.view(torch.int32), again.view(torch.int32))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["plus_times", "min_plus", "or_and"])
 def test_sell2_kernel_folds_an_owner_row_of_its_own(name, cuda):
-    """A rank's shard whose pieces are padding for owner row 0, a row with
-    entries of its own: the owner's fold starts from that row's value, as
-    the plain version's does."""
+    """Pieces that are padding for owner row 0, a row with entries of its
+    own, as a rank with no pieces holds them in the JAX package's stacked
+    panels: the plan made on the card from that rank's entries and the
+    stacked piece owners folds each owner from its own row's value, as the
+    plain version does over those panels."""
     from sparseharness_tpu_torch.parallel import sharded_sell as tss
     from sparseharness_tpu_torch.parallel.mesh import Mesh
 
@@ -312,21 +320,35 @@ def test_sell2_kernel_folds_an_owner_row_of_its_own(name, cuda):
                           (n, n))
     if sr.dtype == torch.bool:
         coo = coo.with_values(coo.vals != 0)
-    op, _ = tss.build_sharded_sell(coo, sr, 2, device="cpu")
-    local = tss.place_sell_shard(Mesh(rank=1, size=2, device=cuda, backend="nccl"), op)
+
+    def rank1(m):
+        """Rank 1's operand of a two-rank CPU build, moved to the card with a
+        plan of its entries whose pieces are the stacked padding."""
+        op = tss.build_sharded_sell(m, sr, 2, device="cpu")[0]
+        local = tss.place_sell_shard(Mesh(rank=1, size=2, device=cuda, backend="nccl"), op)
+        own, owner = local.plan, local.panels.piece_owner
+        assert not own.n_pieces and owner is not None and not bool(owner.any())
+        rp = own.row_ptr.long()
+        rows = torch.repeat_interleave(own.row_dest.long(), rp[1:] - rp[:-1])
+        k = own.n_entries
+        n_pad = sum({lay.row0: lay.rows for lay in local.panels.layouts}.values())
+        zero = torch.full((1,), _carrier(sr)[4], dtype=own.store, device=cuda)
+        plan = sell2.make_plan(rows.to(torch.int32), own.cols[:k], own.vals[:k], zero, owner,
+                               op.base_pad, n_pad)
+        return dataclasses.replace(local, plan=plan), op.chunk_rows
+
+    local, chunk_rows = rank1(coo)
     plan = local.plan
     rp = plan.row_ptr.cpu()
     assert plan.n_pieces and int(rp[-1]) > int(rp[sum(plan.bin_rows)])
     x = _x(sr, n, seed=11).to(cuda)
     got = sell2.sell2_dp_cuda(local, x, sr)
-    ref = sell2.dp_sell2_plain(local, x, sr, n_rows=op.chunk_rows)
+    ref = sell2.dp_sell2_plain(local, x, sr, n_rows=chunk_rows)
     torch.cuda.synchronize()
     bound = None
     if name == "plus_times":
-        aop = tss.place_sell_shard(
-            Mesh(rank=1, size=2, device=cuda, backend="nccl"),
-            tss.build_sharded_sell(coo.with_values(np.abs(coo.vals)), sr, 2, device="cpu")[0])
-        bound = sell2.dp_sell2_plain(aop, x.abs(), sr, n_rows=op.chunk_rows)
+        aop = rank1(coo.with_values(np.abs(coo.vals)))[0]
+        bound = sell2.dp_sell2_plain(aop, x.abs(), sr, n_rows=chunk_rows)
     _assert_kernel_matches(name, got, ref, bound)
 
 
@@ -676,41 +698,21 @@ def test_spmv_sell_launches_one_fused_and_one_level_per_call(cuda):
 
 @pytest.mark.cuda
 def test_sell2_plan_same_on_card_and_cpu(cuda):
-    """The ragged bench operand, built once on the CPU and carried to the
-    card by interop, gives the same plan (make_plan) on both devices, and a
-    build on the card gives the same arrays as the CPU build."""
-    from sparseharness_tpu_torch.ops.interop import sell2_operand_from_numpy
-
+    """The ragged bench matrix built on the card gives the plan that a CPU
+    build gives, field for field, and holds no panels."""
     coo = power_law_coo(500_000, 2_000_000, alpha=1.5, seed=13)
-    cpu_op = sell2.build_sell2(coo, PLUS_TIMES, device="cpu")
-
-    def arrays(op):
-        return [None if s is None else {k: v.cpu().numpy() for k, v in s.items()}
-                for s in op.slabs]
-
-    def owned(t):
-        return None if t is None else t.cpu().numpy()
-
-    card_op = sell2_operand_from_numpy(arrays(cpu_op), cpu_op.layouts, cpu_op.n_chunks,
-                                       cpu_op.n_rows, cpu_op.base_pad,
-                                       owned(cpu_op.piece_owner), owned(cpu_op.virt_blocks),
-                                       device=cuda)
-    cpu_plan, card_plan = cpu_op.plan, card_op.plan
+    cpu_plan = sell2.build_sell2(coo, PLUS_TIMES, device="cpu").plan
+    card = sell2.build_sell2(coo, PLUS_TIMES, device=cuda)
+    card_plan = card.plan
+    assert card.panels is None
     assert card_plan.device.type == "cuda" and cpu_plan.device.type == "cpu"
-    assert card_plan.n_entries == cpu_plan.n_entries
     for field in dataclasses.fields(cpu_plan):
         a, b = getattr(cpu_plan, field.name), getattr(card_plan, field.name)
         if isinstance(a, torch.Tensor):
             assert torch.equal(a, b.cpu()), field.name
-        elif field.name in ("n_final", "store", "bin_rows", "bin_entries", "n_entries"):
+        elif field.name in ("n_final", "bin_rows", "bin_entries", "n_entries"):
             assert a == b, field.name
-    built = sell2.build_sell2(coo, PLUS_TIMES, device=cuda)
-    for a, b in zip(arrays(cpu_op), arrays(built)):
-        assert (a is None) == (b is None)
-        if a is not None:
-            assert a.keys() == b.keys()
-            for k in a:
-                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert card_plan.store == cpu_plan.store
 
 
 # ------------------------------------------------- the sharded path on a card

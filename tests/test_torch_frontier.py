@@ -128,5 +128,5 @@ def test_local_compute_choice_matches_jax(local):
     ref = jsetup(coo_j, JOR, 2, local)
     setup = tfr._frontier_setup(coo_t, OR_AND, 2, local, device="cpu")
     assert (setup.kind, setup.chunk) == (ref[4], ref[2])
-    assert isinstance(setup.op.slabs if setup.kind == "sell" else setup.op.cols,
+    assert isinstance(setup.op.panels.slabs if setup.kind == "sell" else setup.op.cols,
                       (list, torch.Tensor))

@@ -5,7 +5,7 @@ Where the JAX test holds native against NumPy, this file holds three things
 on the same seeded inputs: the port's native result equals the port's NumPy
 result; it equals the JAX package's native result, bit for bit for indices,
 permutations, packed words and values (parsed values too); and the port's
-sell2 build (slabs, plan, piece_owner, virt_blocks) is identical under
+sell2 build (panels, piece_owner, virt_blocks, plan) is identical under
 SPARSEHARNESS_TPU_NATIVE=1 and =0. A library that cannot be built raises
 NativeUnavailable; only SPARSEHARNESS_TPU_NATIVE=0 or use_native=False
 reaches NumPy.
@@ -85,9 +85,10 @@ def _build_both(coo, sr, vd, monkeypatch):
     return ops
 
 
-def _assert_port_identical(a, b):
+def _assert_port_identical(op_a, op_b):
+    a, b = op_a.panels, op_b.panels
     assert a.layouts == b.layouts
-    assert (a.n_chunks, a.n_rows, a.base_pad) == (b.n_chunks, b.n_rows, b.base_pad)
+    assert (a.n_chunks, op_a.n_rows, op_a.base_pad) == (b.n_chunks, op_b.n_rows, op_b.base_pad)
     for field in ("piece_owner", "virt_blocks"):
         x, y = getattr(a, field), getattr(b, field)
         assert (x is None) == (y is None), field
@@ -99,14 +100,15 @@ def _assert_port_identical(a, b):
         for key in () if sa is None else ("chunk", "wordA", "wordB", "vals"):
             assert sa[key].dtype == sb[key].dtype, key
             np.testing.assert_array_equal(_port_arr(sa[key]), _port_arr(sb[key]), err_msg=key)
-    for f in dataclasses.fields(a.plan):
-        x, y = getattr(a.plan, f.name), getattr(b.plan, f.name)
+    for f in dataclasses.fields(op_a.plan):
+        x, y = getattr(op_a.plan, f.name), getattr(op_b.plan, f.name)
         if isinstance(x, torch.Tensor):
             np.testing.assert_array_equal(_port_arr(x), _port_arr(y), err_msg=f.name)
-    assert (a.plan.n_final, a.plan.store) == (b.plan.n_final, b.plan.store)
+    assert (op_a.plan.n_final, op_a.plan.store) == (op_b.plan.n_final, op_b.plan.store)
 
 
 def _assert_same_as_jax(op, jop):
+    op = op.panels
     assert op.layouts == jop.layouts
     for field in ("piece_owner", "virt_blocks"):
         x, y = getattr(op, field), getattr(jop, field)
@@ -264,10 +266,10 @@ def test_native_sell2_encode_bf16_identical(case, monkeypatch):
     make, name = CASES[case]
     a, b = _build_both(_port_coo(make, name), get_semiring(name), "bfloat16", monkeypatch)
     _assert_port_identical(a, b)
-    assert b.slabs[0]["vals"].dtype == torch.bfloat16
+    assert b.panels.slabs[0]["vals"].dtype == torch.bfloat16
     _assert_same_as_jax(b, _jax_native_build(make, name, "bfloat16", monkeypatch))
     if name == "min_plus":
-        assert torch.isinf(b.slabs[0]["vals"].float()).any()
+        assert torch.isinf(b.panels.slabs[0]["vals"].float()).any()
 
 
 def test_native_sell2_encode_identical_with_duplicates(monkeypatch):

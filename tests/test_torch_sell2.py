@@ -131,9 +131,11 @@ def _port_arr(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _assert_same_operand(op, jop):
+def _assert_same_operand(built, jop):
+    op = built.panels
     assert op.layouts == jop.layouts
-    assert (op.n_chunks, op.n_rows, op.base_pad) == (jop.n_chunks, jop.n_rows, jop.base_pad)
+    assert (op.n_chunks, built.n_rows, built.base_pad) == (jop.n_chunks, jop.n_rows,
+                                                          jop.base_pad)
     assert len(op.slabs) == len(jop.slabs)
     for slab, jslab in zip(op.slabs, jop.slabs):
         assert (slab is None) == (jslab is None)
@@ -236,7 +238,7 @@ def test_layout_stats_and_mechanisms():
     """The matrices reach every mechanism of the builder: several slabs,
     bucket layouts sharing a row0, pieces, virtual chunks, both align
     tiles and the hi route."""
-    ops = {m: sell2.build_sell2(MATRICES[m](tf), PLUS_TIMES, device="cpu")
+    ops = {m: sell2.build_sell2(MATRICES[m](tf), PLUS_TIMES, device="cpu").panels
            for m in ("multi_slab", "pieces", "virtual", "hub_row")}
     assert len({lay.row0 for lay in ops["multi_slab"].layouts}) == 2
     assert all(lay.has_hi for lay in ops["multi_slab"].layouts if lay.rows > 16384)
@@ -252,12 +254,12 @@ def test_layout_stats_and_mechanisms():
 
 def test_virtual_chunks_pack_denser():
     coo = MATRICES["virtual"](tf)
-    on = sell2.build_sell2(coo, PLUS_TIMES, device="cpu")
-    off = sell2.build_sell2(coo, PLUS_TIMES, virtual_chunks=False, device="cpu")
+    on = sell2.build_sell2(coo, PLUS_TIMES, device="cpu").panels
+    off = sell2.build_sell2(coo, PLUS_TIMES, virtual_chunks=False, device="cpu").panels
     assert off.virt_blocks is None
     assert sum(lay.panels for lay in on.layouts) < sum(lay.panels for lay in off.layouts)
     banded = sell2.build_sell2(tf.banded_coo(3000, 5, seed=10), PLUS_TIMES, device="cpu")
-    assert banded.virt_blocks is None
+    assert banded.panels.virt_blocks is None
 
 
 def _kernel_model(op, x, sr):
@@ -420,25 +422,63 @@ def test_plan_rows_are_contiguous_and_binned(matrix):
         p0 += rows
 
 
+def _layout_runs(slab, lay):
+    """(panel, row-class, out slot, aligned offset, level) of each run of a
+    layout, panel by panel. Out slot o of row-class l reads the offset its
+    route names (lane, and tile when the layout has two align tiles); that
+    offset holds a run when its capture level v satisfies 1 ≤ v ≤ depth + 1,
+    as the TPU kernel captures it, and any other offset gives 0̄, which
+    needs no run."""
+    P, d_out = lay.panels, lay.rows // 128
+    wa = slab["wordA"].view(P, 128, 128)
+    route = slab["wordB"].view(P, 128, 128)[:, :, :min(d_out, 128)]
+    lane, tile = (route >> 7) & 127, (route >> 14) & 1
+    if lay.has_hi and d_out > 128:
+        hi = wa[:, :, :d_out - 128]
+        lane = torch.cat([lane, (hi >> 22) & 127], dim=2)
+        tile = torch.cat([tile, (hi >> 29) & 1], dim=2)
+    off = lane + 128 * tile if lay.two_tiles else lane
+    word = torch.take_along_dim(wa, (off & 127).long(), dim=2)
+    cap = torch.where(off < 128, word >> 14, word >> 18) & 15
+    p, l, o = torch.nonzero((cap >= 1) & (cap <= lay.depth + 1), as_tuple=True)
+    return p, l, o, off[p, l, o].long(), cap[p, l, o].long() - 1
+
+
+def _xbase(slab, lay, n_chunks, virt_blocks):
+    """(P, 128, 2): the first x column of the block that sublane s binds for
+    way w, through its chunk (wordB's row 0, column s) or virtual chunk."""
+    bind = slab["wordB"].view(lay.panels, 128, 128)[:, 0, :].long()
+    chunk = slab["chunk"].long()
+    c = torch.where(((bind >> 30) & 1) == 1, chunk[:, 1:2], chunk[:, 0:1]).unsqueeze(2)
+    blk = torch.stack([(bind >> 22) & 127, (bind >> 15) & 127], dim=2)
+    base = c * CHUNK_COLS + blk * 128
+    if virt_blocks is not None:
+        virt = virt_blocks.long()
+        vbase = virt[(c - n_chunks).clamp(0, virt.shape[0] - 1), blk] * 128
+        base = torch.where(c < n_chunks, base, vbase)
+    return base
+
+
 @pytest.mark.parametrize("matrix", ["hub_row", "pieces", "virtual", "multi_slab"])
 def test_plan_rows_rebuilt_from_layouts(matrix):
-    """Every real slot of the panels, found without the plan: each run of
-    each layout from its routes (sell2._layout_runs), its aligned slots'
-    sublanes, and the slot's lane and way from wordB; the slots whose
-    sublane is the identity row are the pads. The plan holds exactly the
-    real ones, at their dp rows, and the output rows it names are every
-    row below n_final but the owners."""
+    """Two formats made apart, held against each other: every real slot of
+    the encoder's panels, found without the plan (each run of each layout
+    from its routes, its aligned slots' sublanes, and the slot's lane and
+    way from wordB; the slots whose sublane is the identity row are the
+    pads), and the plan made from the entries. The plan holds exactly the
+    real slots, at their dp rows (a slab's rows start at its row0), and the
+    output rows it names are every row below n_final but the owners."""
     sr = PLUS_TIMES
     op = sell2.build_sell2(MATRICES[matrix](tf), sr, device="cpu")
-    starts, _ = sell2._row_starts(op.layouts)
+    panels = op.panels
     want, pads = [], 0
-    for slab, lay in zip(op.slabs, op.layouts):
+    for slab, lay in zip(panels.slabs, panels.layouts):
         if not lay.panels:
             continue
-        p, l, o, off, level = sell2._layout_runs(slab, lay)
+        p, l, o, off, level = _layout_runs(slab, lay)
         wa = slab["wordA"].view(lay.panels, 128, 128).numpy()
         wb = slab["wordB"].view(lay.panels, 128, 128).numpy()
-        xb = sell2._xbase(slab, lay, op.n_chunks, op.virt_blocks).numpy()
+        xb = _xbase(slab, lay, panels.n_chunks, panels.virt_blocks).numpy()
         vals = slab["vals"].view(lay.panels, 128, 128).numpy()
         for pi, li, oi, fi, vi in zip(p.tolist(), l.tolist(), o.tolist(), off.tolist(),
                                       level.tolist()):
@@ -449,7 +489,7 @@ def test_plan_rows_rebuilt_from_layouts(matrix):
                     pads += 1
                     continue
                 b = int(wb[pi, a, li])
-                want.append((starts[lay.row0] + oi * 128 + li,
+                want.append((lay.row0 + oi * 128 + li,
                              int(xb[pi, a, (b >> 29) & 1]) + (b & 127), float(vals[pi, a, li])))
     rows, cols, vals = _plan_triples(op.plan, op.base_pad)
     assert sorted(zip(rows.tolist(), cols.tolist(), vals.tolist())) == sorted(want)
@@ -465,7 +505,7 @@ def test_plan_rows_rebuilt_from_layouts(matrix):
 @pytest.mark.parametrize("matrix", ["hub_row", "pieces"])
 def test_plan_reaches_every_piece_once_from_its_owner(matrix):
     op = sell2.build_sell2(MATRICES[matrix](tf), PLUS_TIMES, device="cpu")
-    plan, owner = op.plan, op.piece_owner.long()
+    plan, owner = op.plan, op.panels.piece_owner.long()
     owners = plan.owners.long()
     pieces = sorted(k for _, k0, k1 in owners.tolist() for k in range(k0, k1))
     assert pieces == list(range(owner.numel()))
@@ -500,19 +540,17 @@ def test_plan_counts_reach_the_plan_span():
     assert span.attrs["pieces"] == op.plan.n_pieces > 0
 
 
-def test_stale_plan_is_refused():
-    """A plan whose slabs were replaced, or a plan of another operand, is
-    refused before anything reaches the kernel."""
+def test_plain_refuses_an_operand_without_panels():
+    """A card build keeps only the kernel's plan: the plain version, and the
+    routed dp on a CPU tensor, refuse such an operand, naming the CPU
+    build."""
     sr = get_semiring("plus_times")
-    op = sell2.build_sell2(MATRICES["hub_row"](tf), sr, device="cpu")
-    other = sell2.build_sell2(MATRICES["pieces"](tf), sr, device="cpu")
-    x = torch.zeros(op.n_chunks * CHUNK_COLS)
-    before = dict(LAUNCHES)
-    for stale in (dataclasses.replace(op, slabs=list(op.slabs)),
-                  dataclasses.replace(op, plan=other.plan)):
-        with pytest.raises(ValueError, match="plan does not belong"):
-            sell2.sell2_dp_cuda(stale, x, sr)
-    assert LAUNCHES == before
+    coo = MATRICES["hub_row"](tf)
+    op = dataclasses.replace(sell2.build_sell2(coo, sr, device="cpu"), panels=None)
+    x = torch.zeros(coo.shape[1])
+    for dp in (sell2.dp_sell2_plain, sell2.dp_sell2):
+        with pytest.raises(ValueError, match="build it on the CPU"):
+            dp(op, x, sr, n_rows=coo.shape[0])
 
 
 def test_kernel_constants_match_plan():
@@ -542,15 +580,15 @@ def test_spmv_gold_gate_on_cpu():
 
 
 def test_variant_bytes_is_the_hand_sum():
-    """Every slab array, piece_owner and virt_blocks once, x once and the
-    output once; the plan is not counted."""
+    """Every array of the kernel's plan once, x once and the output once;
+    the panels are not counted."""
     for matrix in ("pieces", "virtual"):
         coo = MATRICES[matrix](tf)
         op = sell2.build_sell2(coo, PLUS_TIMES, value_dtype="bfloat16", device="cpu")
-        hand = sum(t.numel() * t.element_size() for s in op.slabs if s is not None
-                   for t in s.values())
-        for extra in (op.piece_owner, op.virt_blocks):
-            hand += 0 if extra is None else extra.numel() * 4
+        plan = op.plan
+        hand = sum(t.numel() * t.element_size() for t in (
+            plan.row_ptr, plan.row_dest, plan.cols, plan.vals, plan.owners, plan.piece_slot,
+            plan.owner_done))
         x_bytes, out_bytes = coo.shape[1] * 4, coo.shape[0] * 4
         assert variant_bytes("sell2", op, x_bytes, out_bytes) == hand + x_bytes + out_bytes
 

@@ -153,9 +153,11 @@ def test_sell_mode_matches_jax(results, case, w):
         np.testing.assert_array_equal(got.aux, np.asarray(want.aux))
 
 
-def _same_sell(op, ref):
-    assert (op.n_chunks, op.n_cols, op.chunk_rows, op.base_pad, op.n_rows) == (
-        ref.n_chunks, ref.n_cols, ref.chunk_rows, ref.base_pad, ref.n_rows)
+def _same_sell(sharded, ref):
+    op = sharded.panels
+    assert (op.n_chunks, sharded.n_cols, sharded.chunk_rows, sharded.base_pad,
+            sharded.n_rows) == (ref.n_chunks, ref.n_cols, ref.chunk_rows, ref.base_pad,
+                                ref.n_rows)
     assert [tuple(lay) for lay in op.layouts] == [tuple(int(v) if i < 4 else bool(v)
                                                        for i, v in enumerate(lay))
                                                  for lay in ref.layouts]
@@ -192,35 +194,36 @@ def test_builder_arrays_equal_jax(shards, matrix, name, value_dtype):
     assert chunk == rchunk
     _same_sell(op, ref)
     if matrix == "heavy":
-        assert op.piece_owner is not None
+        assert op.panels.piece_owner is not None
     if matrix == "virtual":
-        assert op.virt_blocks is not None
+        assert op.panels.virt_blocks is not None
 
 
 def test_each_rank_plans_its_own_panels():
-    """A rank's operand holds its panels (identity padding included) with a
-    plan made for them; the identity panels hold no entry."""
-    op, _ = tss.build_sharded_sell(_heavy(tf), TREG["min_plus"], 2, device="cpu")
-    entries = []
-    for rank in range(2):
-        mesh = Mesh(rank=rank, size=2, device=torch.device("cpu"), backend="gloo")
-        local = tss.place_sell_shard(mesh, op)
-        assert local.plan.slabs is local.slabs
-        for s, stacked in zip(local.slabs, op.slabs):
-            if s is not None:
-                np.testing.assert_array_equal(s["wordA"].numpy(), stacked["wordA"][rank].numpy())
-        entries.append(local.plan.n_entries)
-    # one operand built for each rank alone holds the same entries
+    """A rank's operand holds the plan of its own block, tensor-equal to the
+    plan of that block built alone, and its slice of the stacked panels
+    (identity padding included) for the plain version."""
     from sparseharness_tpu_torch.ops.sell2 import build_sell2
 
     coo = _heavy(tf)
+    op, _ = tss.build_sharded_sell(coo, TREG["min_plus"], 2, device="cpu")
     for rank in range(2):
+        mesh = Mesh(rank=rank, size=2, device=torch.device("cpu"), backend="gloo")
+        local = tss.place_sell_shard(mesh, op)
+        for s, stacked in zip(local.panels.slabs, op.panels.slabs):
+            if s is not None:
+                np.testing.assert_array_equal(s["wordA"].numpy(), stacked["wordA"][rank].numpy())
         sel = (coo.rows // op.chunk_rows) == rank
         alone = build_sell2(tf.coo_from_arrays(coo.rows[sel] - rank * op.chunk_rows,
                                                coo.cols[sel], coo.vals[sel],
                                                (op.chunk_rows, coo.shape[1])),
-                            TREG["min_plus"], split_calls=False, device="cpu")
-        assert alone.plan.n_entries == entries[rank]
+                            TREG["min_plus"], split_calls=False, device="cpu").plan
+        for f in ("row_ptr", "row_dest", "cols", "vals", "owners", "piece_slot", "owner_done"):
+            assert torch.equal(getattr(local.plan, f), getattr(alone, f)), f
+        assert (local.plan.bin_rows, local.plan.bin_entries, local.plan.n_entries,
+                local.plan.n_final) == (alone.bin_rows, alone.bin_entries, alone.n_entries,
+                                        alone.n_final)
+    assert op.ranks[0].plan.n_pieces and not op.ranks[1].plan.n_pieces
 
 
 def test_rank_shard_is_made_once():
