@@ -5,7 +5,8 @@ Run from the repository root with one CUDA card and nvcc present:
 
     python3 chip_smoke.py
 
-It imports only the port (``sparseharness_tpu_torch``), never JAX. Each
+It imports only the port (``sparseharness_tpu_torch``) and, for phase
+12's Kronecker graph, the benchmark's graph generator, never JAX. Each
 phase prints one JSON line with its seconds; any failure raises, so the
 script exits non-zero, and without a card it exits 1 before printing any
 result. Phases:
@@ -78,7 +79,19 @@ result. Phases:
    version, torch.mv on a CSR tensor of the same matrix, the bound, the
    bytes of the plan and of a call, the plan's bins (rows and entries
    each) and pieces, the seconds of each card build (native, with its
-   seconds by stage), and the panels' figures from a CPU build;
+   seconds by stage), and the panels' figures from a CPU build; at the
+   ragged shape the plan keeps x as it is, so a call is the kernel alone;
+   then the sell2 kernel at the benchmark's Graph500 Kronecker graph of
+   scale 20 (portbench/configs/g500-kron-s20.json, 31,403,178 entries over
+   1,048,576 columns), whose plan gathers x in degree order: held to the
+   plain version over a CPU build's panels in f32 plus_times (within the
+   tolerance above), min_plus and or_and (bit for bit), with one x copy a
+   call counted; then the call as built (the copy, then the kernel) timed
+   in turns (degree, as is, as is, degree) with a plan of x as it is, made
+   by a CPU build that takes all of x for L1 (the kernel alone, a
+   yardstick), each kernel's device ms a launch from torch.profiler,
+   beside the bound as portbench/work.py counts it (each folded value, x
+   and the output once) and torch.mv on a CSR tensor of the folded matrix;
 13. the SpMM kernels against their plain versions: spmm_tiles for all
    seven semirings and strip types over bsr_ell and bsr_fused strips of
    random_coo(300, 257, 2500, seed=3) and random_coo(64, 4096, 6000,
@@ -1163,6 +1176,79 @@ def ragged_kernel_times(torch, coo) -> dict:
         res[vd] = entry
         del op, panels, stream
     csr = csr_of(torch, coo)
+    res["library_ms"] = time_ms(torch, lambda: torch.mv(csr, x), 20)
+    del csr
+    return res
+
+
+def kron_coo():
+    """The benchmark's Graph500 Kronecker graph at scale 20, made on the
+    card from its configuration's graph seed, as a host COO."""
+    from portbench.graphs import kronecker
+    from sparseharness_tpu_torch.formats import coo_from_arrays
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "portbench", "configs", "g500-kron-s20.json")) as f:
+        params = json.load(f)["params"]
+    rows, cols, vals, n = kronecker.make(params, 0, "cuda")
+    return coo_from_arrays(rows.cpu().numpy(), cols.cpu().numpy(), vals.cpu().numpy(), (n, n))
+
+
+def kron_kernel_times(torch, errs) -> dict:
+    """The sell2 kernel at the Kronecker graph, whose plan gathers x in
+    degree order: held to the plain version over a CPU build's panels in
+    f32 plus_times, min_plus and or_and (sell2_vs_plain, the worst
+    plus_times error into ``errs``) with the launches of those calls; then
+    the plus_times call timed in turns with the plan of x as it is, made by
+    a CPU build that takes all of x for L1 (the kernel alone, a yardstick);
+    the bound counts the matrix as portbench/work.py does."""
+    from sparseharness_tpu_torch.formats import fold_duplicates
+    from sparseharness_tpu_torch.harness import device_hbm_bandwidth
+    from sparseharness_tpu_torch.ops import LAUNCHES, sell2
+    from sparseharness_tpu_torch.semiring import PLUS_TIMES
+
+    bw = device_hbm_bandwidth(torch.cuda.get_device_name(0))
+    coo = kron_coo()
+    n = coo.shape[0]
+    before = dict(LAUNCHES)
+    checked = sell2_vs_plain(torch, coo, [("plus_times", "float32"), ("min_plus", "float32"),
+                                          ("or_and", "float32")], errs)
+    launches = {k: LAUNCHES[k] - before[k] for k in ("sell2", "sell2_x")}
+    if launches["sell2_x"] != launches["sell2"] or not launches["sell2"]:
+        raise AssertionError(f"sell2 kron20: x copies and calls differ: {launches}")
+    x = random_x(torch, PLUS_TIMES, n, np.random.default_rng(13))
+    t0 = time.perf_counter()
+    op = sell2.build_sell2(coo, PLUS_TIMES, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if op.plan.x_order != "degree":
+        raise AssertionError("the Kronecker graph's plan keeps x as it is")
+    l1 = sell2.L1_COLS
+    sell2.L1_COLS = n
+    try:
+        as_is = sell2.build_sell2(coo, PLUS_TIMES, device="cpu").to("cuda")
+    finally:
+        sell2.L1_COLS = l1
+    if as_is.plan.x_order != "as_is":
+        raise AssertionError("the yardstick's plan orders x")
+    plan = op.plan
+    res = {"rows": n, "nnz": coo.nnz, "entries": plan.n_entries, "build_seconds": build_s,
+           "comparisons": checked, "launches": launches, "max_abs_err": errs["sell2"],
+           **bound(plan.n_entries * 4 + 2 * n * 4, 2 * plan.n_entries, bw),
+           "hot_share": {}, "turns": []}
+    runs = {"degree": op, "as_is": as_is}
+    for label, o in runs.items():
+        cols = o.plan.cols[:o.plan.n_entries]
+        res["hot_share"][label] = int((cols < sell2.L1_COLS).sum()) / cols.numel()
+    for label in ("degree", "as_is", "as_is", "degree"):
+        fn = lambda o=runs[label]: sell2.sell2_dp_cuda(o, x, PLUS_TIMES)  # noqa: E731
+        res["turns"].append({"x_order": label, **time_windows(torch, fn),
+                             "stages": stage_ms(torch, fn, r"sell2_\w+?_kernel")})
+    for label in runs:
+        res[label] = {"ms": float(np.median([t["ms"] for t in res["turns"]
+                                             if t["x_order"] == label]))}
+    del op, as_is, runs
+    csr = csr_of(torch, fold_duplicates(coo, np.add))
     res["library_ms"] = time_ms(torch, lambda: torch.mv(csr, x), 20)
     del csr
     return res
@@ -2406,7 +2492,13 @@ def ragged_phases(torch, card: str, smi: str, rcoo):
 
     with Phase("ragged_kernel_times") as f:
         rtimes = ragged_kernel_times(torch, rcoo)
+        if any("sell2_x" in k for vd in ("float32", "bfloat16") for k in rtimes[vd]["stages"]):
+            raise AssertionError("the ragged shape's call copied x")
         f.update(card=card, nvidia_smi=smi, times=rtimes)
+    with Phase("kron_kernel_times") as f:
+        kerrs = {"sell2": 0.0}
+        rtimes["kron20"] = kron_kernel_times(torch, kerrs)
+        f.update(card=card, nvidia_smi=smi, times=rtimes["kron20"])
     return rlaunches["sell2"], rerrs, rtimes
 
 
@@ -3100,6 +3192,9 @@ def main() -> int:
         "launches": launches["sell2"], "max_abs_err": rerrs["sell2"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": rtimes["library_ms"],
+        "points": {"kron20": {k: rtimes["kron20"][k] for k in (
+            "degree", "as_is", "bound_ms", "bound_by", "library_ms", "max_abs_err",
+            "launches")}},
     })
     t = stimes["band float32 m=128"]
     kernels.append({

@@ -42,7 +42,7 @@ _LOADED: Dict[str, ctypes.CDLL] = {}
 #: launches its kernel and nowhere else, so a run that resets the counts
 #: shows which kernels its work went through
 LAUNCHES: Dict[str, int] = {"staged": 0, "streamed": 0, "bsr_fused": 0,
-                            "bsr_ell": 0, "bsr_pallas": 0, "sell2": 0,
+                            "bsr_ell": 0, "bsr_pallas": 0, "sell2": 0, "sell2_x": 0,
                             "spmm_band": 0, "spmm_tiles": 0, "sell_fused": 0,
                             "sell_level": 0, "dia": 0}
 

@@ -7,10 +7,10 @@
 // capture masks, route crossbars, and ⊕ into the slab's out tile. A panel
 // holds about three slots for each real entry, and a row's entries are cut
 // into runs that lie in as many panels. Here the gather is done once, in the
-// plan: sparseharness_tpu_torch/ops/sell2.py:make_plan decodes every real
-// slot of the panels into (dp row, x column, value), drops the pads, and
-// stores each dp row's pairs contiguously, by column. A call reads that
-// stream in order and reduces each row in registers.
+// plan: sparseharness_tpu_torch/ops/sell2.py:make_plan takes the (dp row, x
+// column, value) entries that build_sell2 packs into the panels and stores
+// each dp row's pairs contiguously, by column. A call reads that stream in
+// order and reduces each row in registers.
 //
 // What it computes. Position i is dp row row_dest[i] (an output row) or
 // overflow piece row_dest[i] − n_final, with entries [row_ptr[i],
@@ -45,23 +45,58 @@
 // moved the kernel by at most 4% at both shapes below
 // (scripts/probe_sell2_bins_cuda.py).
 //
+// The x order. Where numbering the columns by how many entries read them
+// brings more than two entries a column of x into x's first 65,536
+// columns (the 256 KB an SM's L1 holds), more of the kernel's gathers than
+// the copy costs (ops/sell2.py:degree_rank, X_COPY_GATHERS), the plan
+// takes that numbering (col_perm[new] = old), and a call first launches
+// sell2_x_kernel, which writes xo = x in that order into the scratch past
+// the pieces'; the kernel then gathers from xo. On a graph with permuted labels the hub
+// columns lie scattered over x, one to a 128-byte line; in xo the 65,536
+// most read ones share the first 256 KB (81% of the Kronecker graph's
+// entries against 6% before), and the 16,384 most read are dealt one to a
+// line in turn over its first 64 KB (ops/sell2.py:HOT_COLS), which timed
+// better than ranks side by side at the Kronecker graph: 0.2685 against
+// 0.2845 ms with the graph's seed 0, 0.2715 against 0.3095 with seed 1
+// (ranks side by side lost to x as is there); at edgefactor 4 and at scale
+// 17 the layouts read within 2–5% of each other.
+//
 // What bounds it. The stream, 8 bytes an entry in f32 (6 in bf16), the
 // row pointers and destinations, x and the output once: about 77 µs at
 // 3.35 TB/s at the Graph500 Kronecker graph of scale 20 (31.4 M entries).
-// Then one 32-byte L2 sector request an entry for x, fewer where L1 hits:
-// there the x gathers cost about as much again as the stream. Measured on an
-// NVIDIA H100 80GB HBM3 at 700 W, f32 plus_times: at the Kronecker graph
-// 0.291–0.300 ms a kernel, 0.297–0.305 a call (the design it replaced, a
-// panel and a row stage over the TPU's panels, 0.591; cuSPARSE's CSR
-// SpMV 0.259); with every gather sent to x[0] 0.139, with x read past L1
-// 0.310, and without the fence before a piece's count (which the fold
-// needs) 0.278. At power_law_coo(500000, 2000000, alpha=1.5, seed=13)
-// 0.0167–0.0184 ms a kernel (the replaced design 0.0349), where the
-// host's enqueue, 0.015–0.026 ms, often sets the call. An earlier design
-// wrote each run value of the panels at its row-order place on every
-// call, and those scattered 4-byte stores cost more than the row gather
-// they replaced; here the reorder is made once, in the plan, and a call
-// stores only the output.
+// Then one gather an entry: before the x order, one 32-byte L2 sector
+// request an entry, about as much again as the stream (0.297 ms a call,
+// 0.139 with every gather sent to x[0]); in the order most of them hit L1,
+// and the gathers still cost about 0.13 ms. Measured on an NVIDIA H100
+// 80GB HBM3 at 700 W, f32 plus_times, in turns with x as it is
+// (scripts/probe_sell2_bins_cuda.py --x-order): at the Kronecker graph
+// the kernel 0.2685 ms and the copy 0.0065, a call 0.2752–0.2770 against
+// 0.3034 (the design before the row-major plan, a panel and a row stage
+// over the TPU's panels, 0.591; cuSPARSE's CSR SpMV 0.262). The rule's
+// count, entries brought into the first 65,536 columns per column of x,
+// against a call in order and as is: the Kronecker graph 22.5; scale 17
+// (28 entries a column) 14.1, 0.0325–0.0326 against 0.0347–0.0349 ms;
+// scale 20 with edgefactor 4 (7.8 a column) 5.9, 0.0809 against 0.0868,
+// and 3 (5.9 a column) 4.5, 0.0617–0.0626 against 0.0676–0.0681; scale
+// 16, whose x fits in L1, 0, 0.0181 against 0.0182–0.0185;
+// power_law_coo(500000, 2000000, alpha=1.5, seed=13), 3.4 a column, whose
+// generator already numbers the columns by popularity, 0.24, 0.0214–0.0215
+// against 0.0188–0.0191 (the copy, 3 µs, and no gain). A rank's block of
+// the Kronecker graphs (all of x's columns, fewer entries), about: scale 20
+// on 4 ranks 5.7, 0.0736–0.0785 against 0.0770–0.0801; edgefactor 4 on 2
+// ranks 3.0, 0.0455–0.0460 against 0.0458–0.0470; edgefactor 3 on 2 ranks
+// 2.2, 0.0338–0.0353 against 0.0348–0.0372; edgefactor 4 on 4 ranks 1.5,
+// 0.0258–0.0293 against 0.0235–0.0253; edgefactor 3 on 4 ranks 1.1,
+// 0.0230–0.0298 against 0.0199–0.0267. So the copy, 5–7 µs at 1 M
+// columns, costs about two of the kernel's gathers a column, and the rule
+// keeps x as it is on the ragged matrix: a kernel of 0.0167–0.0184 ms,
+// where the host's enqueue, 0.015–0.026 ms, often sets the call. Without
+// the fence before a piece's count (which the fold needs) the Kronecker
+// kernel took 0.278 ms against 0.297. An earlier
+// design wrote each run value of the panels at its row-order place on
+// every call, and those scattered 4-byte stores cost more than the row
+// gather they replaced; here the reorder is made once, in the plan, and a
+// call stores only the output and xo.
 //
 // Semirings, loads and bit-exactness: semiring.cuh. plus_times sums in
 // another order than the plain version, so it is held to a tolerance.
@@ -79,9 +114,10 @@ struct Sell2Plan {
   const int* owners;               // (O, 3): owner row, pieces [k0, k1)
   const int* piece_slot;           // (n_pieces,): each piece's owner in owners
   int* owner_done;                 // (O,): pieces done this call, 0 between calls
+  const int* col_perm;             // (n_perm,): x column of each of cols' ids, or null
   int bin_pos[kSell2Bins + 1];     // first position of each bin
   int bin_block[kSell2Bins + 1];   // first block of each bin
-  int n_final, n_pieces, val_dtype, device;
+  int n_final, n_pieces, n_perm, val_dtype, device;
 };
 
 namespace {
@@ -91,11 +127,31 @@ using namespace sh;
 constexpr int kRowThreads = 256;                              // as ops/sell2.py:ROW_THREADS
 constexpr int kBinLanes[kSell2Bins] = {32, 16, 8, 4, 2, 1};  // as ops/sell2.py:BIN_LANES
 constexpr int kFoldRounds = 8;  // piece values a lane loads at once in an owner's fold
+constexpr int kXThreads = 256;  // threads of a block of the x copy
 
 // Programmatic dependent launch (sm_90): every thread waits here, after
-// loading its plan, until the previous launch's writes are visible.
-__device__ __forceinline__ void wait_for_previous_launch() {
-  asm volatile("griddepcontrol.wait;" ::: "memory");
+// loading its plan, until the previous launch's writes are visible. x
+// passes through the wait's asm, so the compiler cannot issue a load
+// through it above the wait.
+template <typename T>
+__device__ __forceinline__ const T* wait_for_previous_launch(const T* x) {
+  uint64_t p = reinterpret_cast<uint64_t>(x);
+  asm volatile("griddepcontrol.wait;" : "+l"(p) : : "memory");
+  return reinterpret_cast<const T*>(p);
+}
+
+// x in the plan's column order: xo[j] = x[col_perm[j]], 0̄ where that
+// column lies past x's end. A thread a column; the permutation is read
+// before the wait, x after it.
+template <int SR>
+__global__ void __launch_bounds__(kXThreads)
+sell2_x_kernel(const int* __restrict__ col_perm, int n_perm,
+               const typename Op<SR>::T* __restrict__ x, long long n_x,
+               typename Op<SR>::T* __restrict__ xo) {
+  const int j = static_cast<int>(blockIdx.x) * kXThreads + static_cast<int>(threadIdx.x);
+  const int c = j < n_perm ? __ldg(col_perm + j) : 0;
+  x = wait_for_previous_launch(x);
+  if (j < n_perm) xo[j] = c < n_x ? __ldg(x + c) : Op<SR>::zero();
 }
 
 // 0̄ ⊕ (x[col] ⊗ val over entries [k0, k1)), by V lanes: lane `sub` takes
@@ -200,7 +256,7 @@ __device__ __forceinline__ void bin_rows(const Sell2Plan& plan,
     k1 = __ldg(plan.row_ptr + pos + 1);
     dest = __ldg(plan.row_dest + pos);
   }
-  wait_for_previous_launch();
+  x = wait_for_previous_launch(x);
   const auto v = row_value<SR, S, V>(plan, x, n_x, k0, k1, tid & (V - 1));
   if (!live) return;
   if constexpr (V == 32) {
@@ -248,8 +304,22 @@ struct Sell2Launch {
     config.attrs = overlap;
     config.numAttrs = 1;
     const T* x_in = static_cast<const T*>(x);
+    long long n_in = n_x;
     T* out = static_cast<T*>(buf);
-    return cudaLaunchKernelEx(&config, sell2_dp_kernel<SR, S>, plan, x_in, n_x, out);
+    if (plan.col_perm != nullptr) {
+      // x into the plan's column order, in the scratch past the pieces'
+      T* xo = out + plan.n_final + plan.n_pieces;
+      config.gridDim = dim3((plan.n_perm + kXThreads - 1) / kXThreads);
+      config.blockDim = dim3(kXThreads);
+      const int rc = cudaLaunchKernelEx(&config, sell2_x_kernel<SR>, plan.col_perm,
+                                        plan.n_perm, x_in, n_x, xo);
+      if (rc != cudaSuccess) return rc;
+      x_in = xo;
+      n_in = plan.n_perm;
+      config.gridDim = dim3(blocks);
+      config.blockDim = dim3(kRowThreads);
+    }
+    return cudaLaunchKernelEx(&config, sell2_dp_kernel<SR, S>, plan, x_in, n_in, out);
   }
 };
 
@@ -259,15 +329,18 @@ extern "C" {
 
 // The sell2 dp. plan is the operand's launch (ops/sell2.py:_Launch); x the
 // carrier-typed vector of n_x entries (a column past its end reads 0̄);
-// buf holds n_final + n_pieces carrier values: the output rows (the dp,
-// with the pieces folded into their owners), then scratch for the piece
-// values. semiring and the plan's value type pick the instantiation; with
-// no entry the value type is the carrier's. Calls on one plan must run in
-// stream order (its owner counts). Launches on `stream` and returns the
-// first cudaError_t (0 on success); it does not synchronise.
+// buf holds n_final + n_pieces + n_perm carrier values: the output rows
+// (the dp, with the pieces folded into their owners), then scratch for the
+// piece values and for x in the plan's column order. semiring and the
+// plan's value type pick the instantiation; with no entry the value type
+// is the carrier's. Calls on one plan must run in stream order (its owner
+// counts). Launches on `stream` (the x copy where the plan has col_perm,
+// then the kernel) and returns the first cudaError_t (0 on success); it
+// does not synchronise.
 int sh_sell2_dp(const Sell2Plan* plan, const void* x, long long n_x, void* buf, int semiring,
                 void* stream) {
-  if (plan == nullptr || n_x < 0 || plan->n_pieces < 0 || plan->n_final <= 0)
+  if (plan == nullptr || n_x < 0 || plan->n_pieces < 0 || plan->n_final <= 0 ||
+      plan->n_perm < 0 || (plan->col_perm != nullptr) != (plan->n_perm > 0))
     return cudaErrorInvalidValue;
   int rc = cudaSetDevice(plan->device);
   if (rc != cudaSuccess) return rc;

@@ -9,8 +9,11 @@ operand holds what the dp on its own device reads. :func:`make_plan`
 makes the kernel's plan (:class:`Sell2Plan`) on the device from the
 entries the encoder packs: every dp row's (column, value) pairs in row
 order, rows longer than ``SPLIT_T`` striped over overflow pieces past
-``base_pad``. On a CUDA tensor :func:`dp_sell2` makes one launch of
-``csrc/sell2.cu`` over it. A CPU build also keeps the panels
+``base_pad``, and, where that brings more of the gathers into an SM's L1
+(:func:`degree_rank`), the columns numbered by how many entries read them
+(:func:`degree_order`). On a CUDA tensor
+:func:`dp_sell2` launches ``csrc/sell2.cu`` over it: one launch, or two
+where the plan orders x by degree. A CPU build also keeps the panels
 (:class:`Sell2Panels`), which :func:`dp_sell2_plain`, a literal torch
 replica of the TPU kernel's panel body, sweeps on any device.
 
@@ -90,6 +93,17 @@ BIN_LANES = (32, 16, 8, 4, 2, 1)
 BIN_MAX_LEN = (64, 32, 16, 8, 4)
 #: threads of a block of the kernel (csrc/sell2.cu:kRowThreads)
 ROW_THREADS = 256
+#: the carrier values (4 B) that an SM's L1 holds at most: 256 KB
+L1_COLS = 1 << 16
+#: what the x copy costs a column, in the kernel's gathers: the order of x
+#: pays where it brings more entries than this a column into x's first
+#: L1_COLS columns (csrc/sell2.cu's note has the runs that set it)
+X_COPY_GATHERS = 2
+#: the most read columns of the ordered x, dealt over its first HOT_COLS / 32
+#: cache lines of 128 bytes: rank r at line r mod (HOT_COLS / 32), word
+#: r div (HOT_COLS / 32), so that the hottest each lead a line of their own
+#: (csrc/sell2.cu's note has the runs that set it)
+HOT_COLS = 1 << 14
 
 
 class _SlabLayout(NamedTuple):
@@ -103,7 +117,7 @@ class _SlabLayout(NamedTuple):
 
 #: the plan's tensors that the kernel reads, in csrc/sell2.cu:Sell2Plan's order
 _LAUNCH_TENSORS = ("row_ptr", "row_dest", "cols", "vals", "owners", "piece_slot",
-                   "owner_done")
+                   "owner_done", "col_perm")
 _N_BINS = len(BIN_LANES)
 
 
@@ -112,7 +126,8 @@ class _Launch(ctypes.Structure):
 
     _fields_ = ([(f, ctypes.c_void_p) for f in _LAUNCH_TENSORS]
                 + [(f, ctypes.c_int * (_N_BINS + 1)) for f in ("bin_pos", "bin_block")]
-                + [(f, ctypes.c_int) for f in ("n_final", "n_pieces", "val_dtype", "device")])
+                + [(f, ctypes.c_int) for f in ("n_final", "n_pieces", "n_perm", "val_dtype",
+                                                "device")])
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -131,7 +146,11 @@ class Sell2Plan:
     ``owners[i, 0]`` folds pieces [owners[i, 1], owners[i, 2]) after its
     own row, piece k belongs to ``owners[piece_slot[k]]``, and
     ``owner_done`` counts each owner's pieces during a call and is 0
-    between calls, so calls on one operand run in stream order."""
+    between calls, so calls on one operand run in stream order.
+
+    Where the plan orders x by degree (:func:`degree_rank`), ``cols``
+    are new column ids, ``col_perm[new] = old``, and a call first gathers
+    x into that order; else ``col_perm`` is None and ``cols`` are x's."""
 
     row_ptr: torch.Tensor      # int32 (n_positions + O + 1,)
     row_dest: torch.Tensor     # int32 (n_positions + O,)
@@ -140,6 +159,7 @@ class Sell2Plan:
     owners: torch.Tensor       # int32 (O, 3)
     piece_slot: torch.Tensor   # int32 (n_pieces,)
     owner_done: torch.Tensor   # int32 (O,), zeros
+    col_perm: Optional[torch.Tensor]  # int32 (the matrix's columns,), or None
     bin_rows: Tuple[int, ...]
     bin_entries: Tuple[int, ...]
     n_entries: int             # the binned rows' entries and the owners' own
@@ -155,12 +175,17 @@ class Sell2Plan:
         return self.vals.dtype
 
     @property
+    def x_order(self) -> str:
+        """"degree" where a call gathers x into the plan's column order, else "as_is"."""
+        return "as_is" if self.col_perm is None else "degree"
+
+    @property
     def device(self) -> torch.device:
         return self.row_ptr.device
 
     def to(self, device: DeviceLike) -> "Sell2Plan":
         """The same plan on ``device``, with the launch's arguments made there."""
-        return _plan({f: getattr(self, f).to(device) for f in _LAUNCH_TENSORS},
+        return _plan({f: _moved(getattr(self, f), device) for f in _LAUNCH_TENSORS},
                      self.bin_rows, self.bin_entries, self.n_entries, self.n_final)
 
     def __reduce__(self):
@@ -810,30 +835,85 @@ def build_sell2(coo: COO, sr: Semiring, value_dtype: str = "float32",
     plan = make_plan(torch.from_numpy(k_rows.astype(np.int32)).to(device),
                      torch.from_numpy(k_cols.astype(np.int32)).to(device),
                      _as_store(k_vals, store).to(device),
-                     _as_store(zero.reshape(1), store).to(device), owner, base_pad, n_pad)
+                     _as_store(zero.reshape(1), store).to(device), owner, base_pad, n_pad, c)
     panels = None
     if keep_panels:
         virt = torch.from_numpy(np.stack(virt_rows)).to(device) if virt_rows else None
         panels = Sell2Panels(slabs, tuple(layouts), n_chunks, virt, owner)
-    # how often each of the kernel's paths engages
+    # how often each of the kernel's paths engages, and the share of the
+    # entries whose column lies in the first 256 KB of the x that they read
+    n_hot = int((plan.cols[:plan.n_entries] < L1_COLS).sum())
     rec.mark("plan", t, bin_rows=list(plan.bin_rows),
-             bin_entries=list(plan.bin_entries), pieces=plan.n_pieces)
+             bin_entries=list(plan.bin_entries), pieces=plan.n_pieces,
+             x_order=plan.x_order, hot_share=n_hot / max(plan.n_entries, 1))
     return Sell2Operand(n, base_pad, plan, panels)
+
+
+def degree_rank(cols: torch.Tensor, n_cols: int) -> Optional[torch.Tensor]:
+    """x's columns by how many of the int32 ``cols`` (each below
+    ``n_cols``) read each, the most read first and ties in column order
+    (int64), where the plan gathers x in that order; else None. The order
+    pays where it brings more than ``X_COPY_GATHERS`` entries a column of
+    x into x's first ``L1_COLS`` columns, which an SM's L1 can hold: more
+    of the kernel's gathers than the copy costs. So never where x fits in
+    L1, nor where the columns are numbered by how often they are read
+    already, nor where they are read too few times to pay for the copy."""
+    if n_cols <= L1_COLS:
+        return None
+    counts = torch.bincount(cols, minlength=n_cols)
+    by_rank = torch.sort(counts, descending=True, stable=True).indices
+    moved = int(counts[by_rank[:L1_COLS]].sum()) - int(counts[:L1_COLS].sum())
+    return by_rank if moved > X_COPY_GATHERS * n_cols else None
+
+
+def hot_layout(n_cols: int, device: Optional[torch.device] = None) -> torch.Tensor:
+    """The new column of each degree rank (int64, a permutation of
+    ``n_cols``, on ``device``, by default the CPU): the first ``HOT_COLS``
+    ranks (fewer where x is shorter) dealt one to a 32-column line in
+    turn, the rest in rank order."""
+    lines = min(HOT_COLS, n_cols) // 32
+    pos = torch.arange(n_cols, device=device)
+    if lines:
+        hot = pos[:lines * 32]
+        pos[:lines * 32] = hot % lines * 32 + hot // lines
+    return pos
+
+
+def degree_order(cols: torch.Tensor, by_rank: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(new_cols, col_perm)``: the int32 columns ``cols`` renumbered by
+    their rank in ``by_rank`` (:func:`degree_rank`), laid out by
+    :func:`hot_layout`, with ``col_perm[new] = old`` (int32). The map stays
+    in int32, so no 64-bit copy of the entries is made beside them."""
+    device, n_cols = cols.device, by_rank.numel()
+    pos = hot_layout(n_cols, device)
+    col_perm = torch.empty(n_cols, dtype=torch.int32, device=device)
+    col_perm[pos] = by_rank.to(torch.int32)
+    new_id = torch.empty(n_cols, dtype=torch.int32, device=device)
+    new_id[by_rank] = pos.to(torch.int32)
+    return new_id.index_select(0, cols), col_perm
 
 
 def make_plan(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
               zero: torch.Tensor, piece_owner: Optional[torch.Tensor], base_pad: int,
-              n_pad: int) -> Sell2Plan:
+              n_pad: int, n_cols: int) -> Sell2Plan:
     """The kernel's plan, made once in torch on the entries' device, with
     the launch's arguments. The entries are each (dp row, x column) once:
     ``rows`` int32 below ``n_pad``, row ``base_pad + k`` being overflow
-    piece k of owner row ``piece_owner[k]``; ``cols`` int32; ``vals`` in
-    the store type, whose 0̄ is ``zero`` (one element). Each temporary is dropped once used: on the card they set
-    the build's peak memory."""
+    piece k of owner row ``piece_owner[k]``; ``cols`` int32 below
+    ``n_cols``, the matrix's columns, renumbered by :func:`degree_order`
+    where :func:`degree_rank` says so; ``vals`` in the store type, whose 0̄ is
+    ``zero`` (one element). Each temporary is dropped once used: on the
+    card they set the build's peak memory."""
     device = rows.device
     n_entries = rows.numel()
     if n_entries >= (1 << 31) - 4:
         raise ValueError("sell2: too many entries for the kernel's int32 row pointers")
+    col_perm = None
+    by_rank = degree_rank(cols, n_cols)
+    if by_rank is not None:
+        cols, col_perm = degree_order(cols, by_rank)
+        del by_rank
     counts = torch.bincount(rows.long(), minlength=n_pad)
 
     # the positions: pieces, then every output row that is no owner, in
@@ -905,6 +985,7 @@ def make_plan(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
         owners=owners.to(torch.int32).contiguous(),
         piece_slot=piece_slot.to(torch.int32),
         owner_done=torch.zeros(owners.shape[0], dtype=torch.int32, device=device),
+        col_perm=col_perm,
     )
     return _plan(tensors, bin_rows, bin_entries, n_entries, n_final)
 
@@ -919,8 +1000,11 @@ def _plan(tensors: Dict[str, torch.Tensor], bin_rows, bin_entries, n_entries: in
         bin_block.append(bin_block[-1] + -(-bin_rows[k] * lanes // ROW_THREADS))
     device = tensors["row_ptr"].device
     n_bins = ctypes.c_int * (_N_BINS + 1)
-    launch = _Launch(*(tensors[f].data_ptr() for f in _LAUNCH_TENSORS), n_bins(*bin_pos),
+    perm = tensors["col_perm"]
+    launch = _Launch(*(None if tensors[f] is None else tensors[f].data_ptr()
+                       for f in _LAUNCH_TENSORS), n_bins(*bin_pos),
                      n_bins(*bin_block), n_final, int(tensors["piece_slot"].numel()),
+                     0 if perm is None else int(perm.numel()),
                      _build.STRIP_CODES[tensors["vals"].dtype], device.index or 0)
     return Sell2Plan(bin_rows=tuple(bin_rows), bin_entries=tuple(bin_entries),
                      n_entries=n_entries, n_final=n_final, launch=launch, **tensors)
@@ -1059,7 +1143,10 @@ def _fold_pieces_plain(piece_owner: Optional[torch.Tensor], base_pad: int, dp: t
     owners = torch.nonzero(counts).flatten()
     seg = torch.full((base_pad,), ident, dtype=dp.dtype, device=dp.device)
     n_pieces = int(piece_owner.shape[0])
-    pieces = dp[base_pad:base_pad + n_pieces]
+    # each owner's pieces in their order: a rank's stacked owners (the
+    # sharded operand's) end in padding owned by row 0
+    by_owner = torch.sort(piece_owner.long(), stable=True).indices
+    pieces = dp[base_pad:base_pad + n_pieces][by_owner]
     acc = torch.full((owners.numel(),), ident, dtype=dp.dtype, device=dp.device)
     first = ptr[owners]
     for k in range(int(counts.max())):
@@ -1078,9 +1165,10 @@ _DP_ARGTYPES = [ctypes.POINTER(_Launch), ctypes.c_void_p, ctypes.c_longlong,
 
 
 def sell2_dp_cuda(op: Sell2Operand, x: torch.Tensor, sr: Semiring) -> torch.Tensor:
-    """The sell2 dp in one launch of the kernel library over the operand's
+    """The sell2 dp in one call of the kernel library over the operand's
     plan, with the arguments made once beside it: the carrier-typed dp of
-    :func:`dp_sell2`, pieces folded.
+    :func:`dp_sell2`, pieces folded. The call launches the kernel, after a
+    copy of x into the plan's column order where the plan has one.
     Raises on an operand without a plan on x's CUDA device, on what the
     kernel does not take and on a refused launch."""
     plan = op.plan
@@ -1093,9 +1181,10 @@ def sell2_dp_cuda(op: Sell2Operand, x: torch.Tensor, sr: Semiring) -> torch.Tens
     if x.dtype != sr.dtype or sr.dtype != carrier:
         x = x.to(sr.dtype).to(carrier)
     x = x.contiguous()
-    # the output rows, then scratch for the piece values
+    # the output rows, then scratch for the piece values and x in the plan's order
     launch = plan.launch
-    buf = torch.empty(launch.n_final + launch.n_pieces, dtype=carrier, device=dev)
+    buf = torch.empty(launch.n_final + launch.n_pieces + launch.n_perm, dtype=carrier,
+                      device=dev)
     fn = _build.function("sell2", "sh_sell2_dp", _DP_ARGTYPES)
     # the raw current stream: torch.cuda.current_stream builds a Stream object
     # on every call, which costs more host time than the rest of the enqueue
@@ -1103,4 +1192,6 @@ def sell2_dp_cuda(op: Sell2Operand, x: torch.Tensor, sr: Semiring) -> torch.Tens
         ctypes.byref(launch), x.data_ptr(), x.numel(), buf.data_ptr(),
         _build.SR_CODES[sr.name], torch._C._cuda_getCurrentRawStream(dev.index)))
     _build.LAUNCHES["sell2"] += 1
+    if launch.n_perm:
+        _build.LAUNCHES["sell2_x"] += 1
     return buf[:launch.n_final]

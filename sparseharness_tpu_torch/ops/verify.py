@@ -147,6 +147,7 @@ CONTRACTS: Dict[str, Dict[str, Contract]] = {
         "plan.owners": _index(lambda c: (0, c.r_hi)),
         "plan.piece_slot": _index(lambda c: (0, c.op.plan.owners.shape[0])),
         "plan.owner_done": _index(lambda c: (0, 1)),  # 0 between calls
+        "plan.col_perm": _index(lambda c: (0, c.n_cols)),
     },
 }
 

@@ -334,7 +334,7 @@ def test_sell2_kernel_folds_an_owner_row_of_its_own(name, cuda):
         n_pad = sum({lay.row0: lay.rows for lay in local.panels.layouts}.values())
         zero = torch.full((1,), _carrier(sr)[4], dtype=own.store, device=cuda)
         plan = sell2.make_plan(rows.to(torch.int32), own.cols[:k], own.vals[:k], zero, owner,
-                               op.base_pad, n_pad)
+                               op.base_pad, n_pad, n)
         return dataclasses.replace(local, plan=plan), op.chunk_rows
 
     local, chunk_rows = rank1(coo)

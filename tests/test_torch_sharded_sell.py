@@ -23,6 +23,7 @@ from sparseharness_tpu.ops.pallas_sell2 import CHUNK_COLS
 from sparseharness_tpu.parallel import sharded_sell as jss
 from sparseharness_tpu.semiring import REGISTRY as JREG
 import sparseharness_tpu_torch.formats as tf
+from sparseharness_tpu_torch.ops import sell2
 from sparseharness_tpu_torch.parallel import Call, fixcore, run_calls, run_world
 from sparseharness_tpu_torch.parallel import sharded as ts
 from sparseharness_tpu_torch.parallel import sharded_sell as tss
@@ -224,6 +225,32 @@ def test_each_rank_plans_its_own_panels():
                 local.plan.n_final) == (alone.bin_rows, alone.bin_entries, alone.n_entries,
                                         alone.n_final)
     assert op.ranks[0].plan.n_pieces and not op.ranks[1].plan.n_pieces
+
+
+def test_stacked_pieces_fold_into_their_own_owners():
+    """A rank with fewer pieces than another holds stacked piece owners
+    that end in padding owned by row 0: the plain version folds each piece
+    into its own owner all the same (min_plus, against the rows' minima)."""
+    rng = np.random.default_rng(38)
+    n, hubs = 2100, (9, 100, 2060)
+    bg = tf.random_graph_coo(n, 2.0, seed=39)
+    rows = np.r_[np.repeat(hubs, 400), bg.rows].astype(np.int32)
+    cols = np.r_[np.concatenate([rng.choice(n, 400, replace=False) for _ in hubs]),
+                 bg.cols].astype(np.int32)
+    vals = rng.uniform(0.1, 1.0, rows.size).astype(np.float32)
+    coo = tf.coo_from_arrays(rows, cols, vals, (n, n))
+    op, chunk = tss.build_sharded_sell(coo, TREG["min_plus"], 2, device="cpu")
+    assert 0 < op.ranks[1].plan.n_pieces < op.ranks[0].plan.n_pieces
+    x = _x(n, "min_plus")
+    s = tf.fold_duplicates(coo, np.minimum)
+    want = np.full(2 * chunk, np.finfo(np.float32).max, np.float32)
+    np.minimum.at(want, s.rows, x[s.cols] + s.vals)
+    for rank in range(2):
+        local = tss.place_sell_shard(Mesh(rank=rank, size=2, device=torch.device("cpu"),
+                                          backend="gloo"), op)
+        got = sell2.dp_sell2_plain(local, torch.from_numpy(x), TREG["min_plus"],
+                                   n_rows=chunk)[:chunk]
+        np.testing.assert_array_equal(got.numpy(), want[rank * chunk:(rank + 1) * chunk])
 
 
 def test_rank_shard_is_made_once():

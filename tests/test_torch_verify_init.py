@@ -130,12 +130,21 @@ def _light_chunks():
                               (2048, 4 * 16384))
 
 
+def _scattered(coo):
+    """coo with its columns relabelled at random, so that the most read
+    columns lie scattered over x."""
+    perm = np.random.default_rng(10).permutation(coo.shape[1])
+    return tf.coo_from_arrays(coo.rows, perm[coo.cols], coo.vals, coo.shape)
+
+
 # every registered variant on matrices that bring out its optional fields:
-# split rows and virtual chunks (sell2), levels (sell), a band's span table
+# split rows and virtual chunks (sell2), levels (sell), a band's span table,
+# x in degree order (sell2, under an L1 of 256 columns)
 COVERAGE = {
     "random": lambda: tf.random_coo(300, 300, 1500, seed=2),
     "band": lambda: tf.banded_coo(1200, 20, seed=1),
     "zipf": lambda: tf.power_law_coo(3000, 20000, seed=4),
+    "zipf_scattered": lambda: _scattered(tf.power_law_coo(3000, 40000, alpha=1.2, seed=4)),
     "virtual": lambda: _light_chunks(),
     "hub": lambda: tf.coo_from_arrays(
         np.r_[np.full(600, 7), np.arange(600)], np.r_[np.arange(600), np.arange(600)],
@@ -143,9 +152,14 @@ COVERAGE = {
 }
 
 
-def test_contract_table_names_every_leaf():
+def test_contract_table_names_every_leaf(monkeypatch):
     """Every tensor leaf of every registered variant's operand has a
-    contract, and every contract names a leaf that some operand has."""
+    contract, and every contract names a leaf that some operand has. Under
+    an L1 of 256 columns the scattered power law's sell2 plan gathers x in
+    degree order, so it holds a col_perm."""
+    from sparseharness_tpu_torch.ops import sell2
+
+    monkeypatch.setattr(sell2, "L1_COLS", 256)
     used = set()
     built = set()
     for variant in sorted(VARIANTS):
